@@ -8,12 +8,13 @@ Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once.
-  3. kernels: each of the nine kernels against its plain torch twin on the
+  3. kernels: each of the ten kernels against its plain torch twin on the
      card, on inputs from a fixed numpy seed at the paths' shapes plus edge
      inputs; equality must be exact, limb for limb (tolerance 0: integer
-     arithmetic).  Kernel and twin times: median of CUDA-event runs; the
-     bound is the larger of the kernel's int32 multiply-adds over the card's
-     IMAD rate and its bytes over the HBM rate.
+     arithmetic).  Kernel and twin times, at the last shape of each kernel:
+     median of CUDA-event runs; the bound is the larger of the kernel's
+     int32 multiply-adds over the card's IMAD rate and its bytes over the
+     HBM rate.
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
@@ -27,11 +28,22 @@ Phases, each raising on failure (so the exit code is nonzero):
      against the native library's MSM; points per second; and the sweep of
      the accumulator over w = 4..8 and three block shapes at 2^12, 2^13 and
      2^16, each result exact.
-  7. the main paths, counted: the launch counters are set to 0 before each
+  7. prove, n = 64: fused._prove on fixed inputs (the JAX package's n = 64
+     fixture, tests/golden/prove_n64.npz: its generators, bits and
+     randomness) under config.LADDER_WINDOW = 4 and = 0, each path counted
+     from zero (the window ladder's kernel and not the binary one's, and the
+     reverse); both blobs equal to the fixture's blob byte for byte; V, A and
+     S equal to the python-int oracle's commitments; the proof accepted by
+     the native verifier and by fused.verify, t_hat + 1 rejected by both;
+     one verify under the binary ladder, counted, accepted as native
+     accepts it.
+  8. the main paths, counted: the launch counters are set to 0 before each
      path (one verify; a batch of 16; batches of 128 and 256; the four
-     msm_auto sizes) and read after it; every one of the nine kernels must
-     launch on them.  Then wall times and the torch profiler's view of one
-     verify.
+     msm_auto sizes; and phase 7's) and read after it; every one of the ten
+     kernels must launch on them.  Then wall times (fused.prove under each
+     ladder, median of 3, with fresh randomness: the last proof of each must
+     pass the native verifier) and the torch profiler's view of one verify
+     and one prove.
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -46,6 +58,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,6 +69,7 @@ from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field
 from cudabulletproof_tpu_torch.ops import curve as C, field as F
 from cudabulletproof_tpu_torch.ops import msm as M, pippenger as PP
+from cudabulletproof_tpu_torch.ops import scalar_field as SC
 from cudabulletproof_tpu_torch.utils import build, native, oracle
 from cudabulletproof_tpu_torch.utils.serialization import (
     deserialize_range_proof, serialize_range_proof)
@@ -70,6 +84,14 @@ BIG_BATCHES = (128, 256)
 # batches of 128 and 256 pad theirs to 4096 and 8192
 FE_SHAPES = (17, 272)
 PT_SHAPES = (147, 402)
+# the prover's ladder calls at n = 64: V (2 points), T1|T2 (2 x 2), an IPA
+# round's L|R (2 x 65), A|S (2 x 129)
+PROVE_LADDER_SHAPES = (2, 4, 130, 258)
+# the binary ladder's cases; the last (402, the merged batch of 16) is the
+# one its record reports, as for the window ladder
+LADDER_BIN_SHAPES = (1, 4096) + PROVE_LADDER_SHAPES + PT_SHAPES
+PROVE_GOLDEN = "tests/golden/prove_n64.npz"
+PROVE_REPS = 3
 INVERT_SHAPES = (1, 272, 4096)
 REDUCE_SHAPES = (147, 256, 1000, 4096)
 ACCUM_BASES = 4096
@@ -113,6 +135,8 @@ KERNELS = [
      "cudabulletproof_tpu/ops/pallas_curve.py:156"),
     ("ge_ladder_win", "curve_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_curve.py:193"),
+    ("ge_ladder_bin", "curve_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_curve.py:160"),
     ("ge_reduce", "curve_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_curve.py:610"),
     ("ge_bucket_accum", "accum_kernels.cu",
@@ -253,22 +277,40 @@ def kernel_cases(rng, dev):
             (n, lambda a=a: cuda_field.invert(a),
              lambda a=a: F.invert_plain(a),
              m * (254 * IMAD_SQ + 11 * IMAD_MUL), 2 * m * FE_BYTES))
+    def ladder_operands(n):
+        """n random rows plus every edge point, against n random scalars
+        plus the edge scalars, repeated to the edge points' count."""
+        edge = edge_points()
+        rows = np.concatenate([rand_pts(n), edge])
+        s = np.concatenate([rand_scalars(n),
+                            np.resize(edge_scalars(), (len(edge), F.L))])
+        return C.unflatten(t(rows)), t(s)
+
     for n in PT_SHAPES:
         p = C.unflatten(t(np.concatenate([rand_pts(n), edge_points()])))
         q = C.unflatten(t(np.concatenate([rand_pts(n), edge_points()[::-1]])))
-        s = t(np.concatenate([rand_scalars(n), edge_scalars()]))
-        ps = C.GE(*(c[:s.shape[0]] for c in p))
-        m, ms = p.x.shape[0], s.shape[0]
+        m = p.x.shape[0]
         cases["ge_add"].append((n, lambda p=p, q=q: cuda_curve.add(p, q),
                                 lambda p=p, q=q: C.add_plain(p, q),
                                 m * IMAD_ADD, 3 * m * PT_BYTES))
         cases["ge_double"].append((n, lambda p=p: cuda_curve.double(p),
                                    lambda p=p: C.double_plain(p),
                                    m * IMAD_DBL, 2 * m * PT_BYTES))
+    for n in PROVE_LADDER_SHAPES + PT_SHAPES:
+        ps, s = ladder_operands(n)
+        ms = s.shape[0]
         cases["ge_ladder_win"].append(
             (n, lambda p=ps, s=s: cuda_curve.ladder(p, s),
              lambda p=ps, s=s: C.scalarmult_plain(p, s),
              ms * (267 * IMAD_DBL + 72 * IMAD_ADD),
+             ms * (2 * PT_BYTES + FE_BYTES)))
+    for n in LADDER_BIN_SHAPES:
+        ps, s = ladder_operands(n)
+        ms = s.shape[0]
+        cases["ge_ladder_bin"].append(
+            (n, lambda p=ps, s=s: cuda_curve.ladder_bin(p, s),
+             lambda p=ps, s=s: C.scalarmult_bin_plain(p, s),
+             ms * 2 * C.SCALAR_BITS * IMAD_ADD,
              ms * (2 * PT_BYTES + FE_BYTES)))
     for n in REDUCE_SHAPES:
         rows = np.concatenate([rand_pts(n - len(edge_points())),
@@ -303,12 +345,14 @@ def as_tensor(out) -> torch.Tensor:
 
 
 def check_kernels(dev, rate) -> dict:
-    """Every kernel equal to its twin, limb for limb; returns per-kernel
-    {max_abs_err, ms, plain_ms, bound_ms, bound_by} of its last case."""
+    """Every kernel equal to its twin, limb for limb, in every case; returns
+    per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by}, the times
+    and the bound of its last case (the only one timed)."""
     rng = np.random.default_rng(SEED)
     results = {}
     for name, cases in kernel_cases(rng, dev).items():
-        for label, kern, plain, imads, nbytes in cases:
+        worst = 0
+        for i, (label, kern, plain, imads, nbytes) in enumerate(cases):
             got = as_tensor(kern())
             torch.cuda.synchronize()
             want = as_tensor(plain())
@@ -316,23 +360,29 @@ def check_kernels(dev, rate) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} at {label}: kernel != plain "
                                      f"(max abs limb difference {err})")
-            slow = name == "ge_bucket_accum"
+            worst = max(worst, err)
+            if i < len(cases) - 1:
+                log(f"kernel {name:15s} n={label}: equal to plain")
+                continue
+            slow = name in ("ge_bucket_accum", "ge_ladder_bin")
             ms = cuda_median_ms(kern)
             plain_ms = cuda_median_ms(plain, reps=1 if slow else 3)
             bound_ms, bound_by = bound(imads, nbytes, rate)
             log(f"kernel {name:15s} n={label}: equal to plain, {ms:.4f} ms "
                 f"vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
-            results[name] = {"max_abs_err": err, "ms": ms,
+            results[name] = {"max_abs_err": worst, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
-    # the ladder and the tile sum on real points against the oracle
+    # both ladders and the tile sum on real points against the oracle
     pts = [oracle.hash_to_point(b"smoke", i) for i in range(4)]
     scs = [1, 7, oracle.ELL - 1, 0x1234567 << 200]
-    got = C.to_oracle(cuda_curve.ladder(C.from_oracle(pts, dev),
-                                        F.from_ints(scs, dev)))
-    if got != [s * p for s, p in zip(scs, pts)]:
-        raise AssertionError("ladder kernel disagrees with the oracle")
+    for ladder in (cuda_curve.ladder, cuda_curve.ladder_bin):
+        got = C.to_oracle(ladder(C.from_oracle(pts, dev),
+                                 F.from_ints(scs, dev)))
+        if got != [s * p for s, p in zip(scs, pts)]:
+            raise AssertionError(f"{ladder.__name__} kernel disagrees with "
+                                 "the oracle")
     tor = oracle.small_order_points()
     many = [oracle.hash_to_point(b"tiles", i) for i in range(292)] + tor
     want = oracle.IDENTITY
@@ -518,7 +568,99 @@ def check_msm(points, scalars, ks, rate):
     return wall, sweep
 
 
-# --- 7. timing ----------------------------------------------------------------
+# --- 7. prove -----------------------------------------------------------------
+# the kernels the prover launches besides its ladder: the halving of the
+# ladder's products (ge_add) and the compression's batch inversion
+PROVE_KERNELS = ["fe_mul", "fe_invert", "ge_add"]
+# and the verifier's: decompression, small-order check, the MSM's tree
+VERIFY_KERNELS = ["fe_mul", "fe_sq", "fe_pow2523", "ge_add", "ge_double"]
+LADDERS = {4: "ge_ladder_win", 0: "ge_ladder_bin"}
+
+
+def prove_fixture(gens, dev) -> dict:
+    """The JAX package's n = 64 prover fixture on the card: gp, aL_bits and
+    scp as tensors, the blob as numpy; its generators must be the port's."""
+    path = Path(__file__).resolve().parent / PROVE_GOLDEN
+    with np.load(path) as f:
+        ref = {k: f[k] for k in f.files}
+    out = {k: torch.from_numpy(ref[k]).to(dev)
+           for k in ("gp", "aL_bits", "scp")}
+    if not torch.equal(out["gp"], gens.pack(N_BITS)):
+        raise AssertionError("the fixture's generators are not the port's")
+    out["blob"] = ref["blob"]
+    return out
+
+
+def oracle_commitments(ref: dict) -> list:
+    """V, A, S of the fixture's inputs by the python-int oracle, compressed:
+    value g + blinding h, alpha h + <aL, G> + <aR, H> (aR = aL - 1) and
+    rho h + <sL, G> + <sR, H>."""
+    n = N_BITS
+    ints = [v % oracle.ELL for v in SC.to_ints(ref["scp"])]
+    bits = ref["aL_bits"].tolist()
+    G = [oracle.hash_to_point(b"/G", i) for i in range(n)]
+    H = [oracle.hash_to_point(b"/H", i) for i in range(n)]
+    g, h = oracle.hash_to_point(b"/g", 0), oracle.hash_to_point(b"/h", 0)
+
+    def msm(pairs):
+        acc = oracle.IDENTITY
+        for k, pt in pairs:
+            acc = acc + k * pt
+        return acc.compress()
+    value, blinding, alpha, rho = ints[:4]
+    sL, sR = ints[6:6 + n], ints[6 + n:6 + 2 * n]
+    return [msm([(value, g), (blinding, h)]),
+            msm([(alpha, h)] + list(zip(bits, G))
+                + [(b - 1, pt) for b, pt in zip(bits, H)]),
+            msm([(rho, h)] + list(zip(sL, G)) + list(zip(sR, H)))]
+
+
+def check_prove(gens, dev, verify_proof) -> list:
+    """Phase 7; returns the launch counts of its counted paths."""
+    ref = prove_fixture(gens, dev)
+    counts_of, blobs = [], {}
+    for window, ladder in LADDERS.items():
+        config.LADDER_WINDOW = window
+        other = [k for k in LADDERS.values() if k != ladder]
+
+        def path(window=window):
+            blobs[window] = fused._prove(ref["gp"], ref["aL_bits"],
+                                         ref["scp"], N_BITS).cpu().numpy()
+            return True
+        counts_of.append(counted(f"prove n={N_BITS}, LADDER_WINDOW={window}",
+                                 path, PROVE_KERNELS + [ladder], other))
+    config.LADDER_WINDOW = 4
+    for window, blob in blobs.items():
+        if not np.array_equal(blob, ref["blob"]):
+            raise AssertionError(f"prove blob under LADDER_WINDOW={window} != "
+                                 "the JAX package's blob")
+    log(f"prove n={N_BITS}: the blobs under both ladders equal the JAX "
+        "package's blob byte for byte")
+    if [bytes(r) for r in ref["blob"][:3]] != oracle_commitments(ref):
+        raise AssertionError("V, A, S differ from the oracle's commitments")
+    log("prove: V, A, S equal the python-int oracle's commitments")
+    proof = fused._blob_proof(ref["blob"], N_BITS)
+    if not (native.verify_range(serialize_range_proof(proof))
+            and fused.verify(proof, gens)):
+        raise AssertionError("the port's proof is rejected")
+    bad = dataclasses.replace(proof, t_hat=(proof.t_hat + 1) % oracle.ELL)
+    if native.verify_range(serialize_range_proof(bad)) or fused.verify(
+            bad, gens):
+        raise AssertionError("the port's proof with t_hat + 1 is accepted")
+    log("prove: the proof accepted by the native verifier and fused.verify; "
+        "t_hat + 1 rejected by both")
+
+    config.LADDER_WINDOW = 0
+    want = native.verify_range(serialize_range_proof(verify_proof))
+    counts_of.append(counted(
+        "one verify, LADDER_WINDOW=0",
+        lambda: want and fused.verify(verify_proof, gens),
+        VERIFY_KERNELS + ["ge_ladder_bin"], ["ge_ladder_win"]))
+    config.LADDER_WINDOW = 4
+    return counts_of
+
+
+# --- 8. timing ----------------------------------------------------------------
 def wall_median_s(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -530,23 +672,25 @@ def wall_median_s(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_verify(proof, gens):
-    """Kernel launches and device time of one verify, as the profiler sees
+def profile_call(fn):
+    """Kernel launches and device time of one call, as the profiler sees
     them: (cudaLaunchKernel calls, device events, device ms, the device
     time by kernel name, largest first); None where it recorded no device
-    activity."""
+    activity.  Reads the profiler's raw event records: ``prof.events()``
+    would build a tree of every CPU op, minutes at the prover's ~580 k
+    launches."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fused.verify(proof, gens)
+        fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
+    events = prof.profiler.kineto_results.events()
+    launches = sum(1 for e in events if e.name() == "cudaLaunchKernel")
     by_name = {}
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            count, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            count, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
     dev_events = sum(c for c, _ in by_name.values())
     dev_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
@@ -563,9 +707,9 @@ def msm_route_kernels(n: int) -> list:
     return need + ["ge_add"] if n > config.MSM_ACCUM_CHUNK else need
 
 
-def counted(label: str, fn, need) -> dict:
+def counted(label: str, fn, need, forbid=()) -> dict:
     """Run one main path with the counters set to 0 before it; the kernels
-    in `need` must have launched in it."""
+    in `need` must have launched in it, those in `forbid` not."""
     reset_counts()
     if not fn():
         raise AssertionError(f"{label}: wrong result")
@@ -574,6 +718,9 @@ def counted(label: str, fn, need) -> dict:
     missing = [k for k in need if got[k] == 0]
     if missing:
         raise AssertionError(f"{label} launched no {missing}")
+    stray = [k for k in forbid if got[k]]
+    if stray:
+        raise AssertionError(f"{label} launched {stray}")
     log(f"launches in {label}: " + ", ".join(
         f"{k} {v}" for k, v in got.items() if v))
     return got
@@ -630,9 +777,14 @@ def run(dev, card: str, rate: float) -> dict:
     msm_wall, sweep = check_msm(points, scalars, ks, rate)
     log(f"[time] msm checked at {time.perf_counter() - t_start:.0f} s")
 
+    try:
+        prove_counts = check_prove(gens, dev, proofs[0])
+    finally:
+        config.LADDER_WINDOW = 4
+    log(f"[time] prove checked at {time.perf_counter() - t_start:.0f} s")
+
     # the main paths, counted: counters set to 0 before each, read after it
-    verify_kernels = ["fe_mul", "fe_sq", "fe_pow2523", "ge_add", "ge_double",
-                      "ge_ladder_win"]
+    verify_kernels = VERIFY_KERNELS + ["ge_ladder_win"]
     accum_kernels = ["fe_mul", "fe_sq", "fe_pow2523", "fe_invert",
                      "ge_double", "ge_bucket_accum"]
     paths = [
@@ -650,8 +802,9 @@ def run(dev, card: str, rate: float) -> dict:
                       lambda p=p, s=s, n=n: to_compressed(M.msm_auto(p, s))
                       == expected_bytes(ks, n), msm_route_kernels(n)))
     launches = {k: 0 for k in counts()}
-    for label, fn, need in paths:
-        for k, v in counted(label, fn, need).items():
+    for got in prove_counts + [counted(label, fn, need, ["ge_ladder_bin"])
+                               for label, fn, need in paths]:
+        for k, v in got.items():
             launches[k] += v
     missing = [name for name, *_ in KERNELS if launches[name] == 0]
     if missing:
@@ -676,13 +829,36 @@ def run(dev, card: str, rate: float) -> dict:
         log(f"[{card}] accumulator sweep n={n}: best (w, threads, slices) = "
             f"{best} {runs[best]:.3f} ms; config {plan} "
             f"{runs.get(plan, float('nan')):.3f} ms")
-    n_launch, dev_events, dev_ms, top = profile_verify(proofs[0], gens)
-    log(f"[{card}] profiler, one verify: {n_launch} cudaLaunchKernel calls, "
-        f"{dev_events if dev_events is not None else 'not measured'} device "
-        f"events, device time "
-        f"{f'{dev_ms:.2f} ms' if dev_ms is not None else 'not measured'}")
-    for name, (count, us) in top[:12]:
-        log(f"  device {us / 1e3:9.3f} ms  {count:7d} x  {name[:90]}")
+    prove_value, prove_gamma = (1 << N_BITS) - 1, 0x5EED
+    try:
+        for window in LADDERS:
+            config.LADDER_WINDOW = window
+            last = {}
+            s = wall_median_s(lambda: last.update(proof=fused.prove(
+                prove_value, prove_gamma, N_BITS, gens)), PROVE_REPS)
+            log(f"[{card}] prove n={N_BITS}, LADDER_WINDOW={window}: median "
+                f"{s * 1e3:.1f} ms")
+            if not native.verify_range(serialize_range_proof(last["proof"])):
+                raise AssertionError("fused.prove with fresh randomness: "
+                                     "rejected by the native verifier")
+            log(f"prove: fused.prove of 2^{N_BITS} - 1 with fresh randomness "
+                f"(LADDER_WINDOW={window}) accepted by the native verifier")
+    finally:
+        config.LADDER_WINDOW = 4
+    for label, fn in (
+            ("one verify", lambda: fused.verify(proofs[0], gens)),
+            ("one prove", lambda: fused.prove(prove_value, prove_gamma,
+                                              N_BITS, gens))):
+        t0 = time.perf_counter()
+        n_launch, dev_events, dev_ms, top = profile_call(fn)
+        log(f"[time] profiled {label} in {time.perf_counter() - t0:.0f} s")
+        log(f"[{card}] profiler, {label}: {n_launch} cudaLaunchKernel "
+            f"calls, "
+            f"{dev_events if dev_events is not None else 'not measured'} "
+            "device events, device time "
+            f"{f'{dev_ms:.2f} ms' if dev_ms is not None else 'not measured'}")
+        for name, (count, us) in top[:12]:
+            log(f"  device {us / 1e3:9.3f} ms  {count:7d} x  {name[:90]}")
     log(f"[time] total {time.perf_counter() - t_start:.0f} s")
 
     if "jax" in sys.modules or any(k == "cudabulletproof_tpu" or k.startswith(

@@ -1,8 +1,8 @@
 """Constants of the PyTorch port.
 
-Each has one value the ported code runs, so each is a constant and not a
-setting; a knob comes back when a second value has code behind it (the
-binary ladder, for instance).
+Each is a module constant.  ``LADDER_WINDOW`` is the one knob: it has two
+values with code behind them and is read at call time; every other constant
+has one value the ported code runs.
 
 Knobs of the JAX package that have no counterpart here, and why:
 
@@ -22,8 +22,11 @@ Knobs of the JAX package that have no counterpart here, and why:
 # 130 + 17 B bases, so B >= 113 takes the accumulator.
 FUSED_ACCUM_MIN = 2048
 
-# Window width of the per-point ladder (the JAX package's
-# ``config.PALLAS_LADDER_WINDOW`` default); the only ladder ported.
+# The per-point ladder of ``curve.scalarmult`` (the JAX package's
+# ``config.PALLAS_LADDER_WINDOW``): 4 = fixed 4-bit windows over a 16-entry
+# table (the ge_ladder_win kernel, the default), 0 = binary double-and-add
+# over the 260 scalar bits (ge_ladder_bin).  Read at call time; any other
+# value raises there.
 LADDER_WINDOW = 4
 
 # ``ops/msm.py::msm_auto`` routes (the JAX package's TPU routes): up to

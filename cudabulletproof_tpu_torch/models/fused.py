@@ -1,23 +1,37 @@
-"""Range-proof verification as one pass of tensor ops: proof bytes in, one
-bool out, every challenge derived on the device.
+"""Range proofs as one pass of tensor ops each: ``prove`` (random inputs in,
+proof bytes out) and ``verify`` / ``batch_verify`` (proof bytes in, one bool
+out), every challenge derived on the device.
 
-The verify half of ``cudabulletproof_tpu/models/fused.py`` (``verify`` :623,
+The prover is ``cudabulletproof_tpu/models/fused.py``'s (``prove`` :404,
+``_prove_fn`` :315, ``_ipa_prove_scan`` :257, ``_ipa_scan_tables`` :218,
+``_ipa_masks`` :200, ``_msm_compressed`` :149): the commitments V, A, S, T1,
+T2 and the inner-product rounds' L, R as MSMs on the ladder
+(``curve.scalarmult``, whose ladder ``config.LADDER_WINDOW`` picks), the
+transcript and the mod-l algebra as tensor ops.  Given the same generators,
+bits and randomness ``scp`` it writes the JAX package's blob byte for byte.
+The IPA rounds keep the JAX package's fixed-length vectors and gather
+tables, so every round has the same shapes; its ``lax.scan`` is a Python
+loop.
+
+The verifier is the verify half of the same file (``verify`` :623,
 ``batch_verify`` :645 with merged=True, ``_verify_parts_fn`` :451,
 ``_msm_point`` :177, ``_fused_msm_min`` :112, ``_pippenger_rows`` :124),
-with ``vmap`` replaced by an explicit leading batch axis.  Per proof: decompress the 5 + 2k proof points and reject small-order
-ones, re-run the SHA-256 transcript, and build the random-linear-combination
-scalars over the bases [G(n) | H(n) | g h V A S T1 T2 | L(k) | R(k)]; then
-one multi-scalar multiplication (MSM) must give the identity after the
+with ``vmap`` replaced by an explicit leading batch axis.  Per proof:
+decompress the 5 + 2k proof points and reject small-order ones, re-run
+the SHA-256 transcript, and build the random-linear-combination scalars
+over the bases [G(n) | H(n) | g h V A S T1 T2 | L(k) | R(k)]; then one
+multi-scalar multiplication (MSM) must give the identity after the
 cofactor 8.  A merged batch sums the scalars of the shared generators over
 the proofs and concatenates the proof-point rows, so B proofs cost one
 (2n+2 + B(5+2k))-base MSM.  Sound because each proof draws fresh nonzero
 weights (r1, r2) from ``secrets``.
 
-The MSM is the per-point windowed ladder plus a tree of adds below
-``config.FUSED_ACCUM_MIN`` bases and the signed-bucket accumulator
-(``ops/pippenger.py``) from that size up, the JAX package's routes
-(``_msm_point`` :177, ``_pippenger_rows`` :124).  At n = 64 a merged batch
-of B proofs has 130 + 17 B bases, so from B = 113 it takes the accumulator.
+Prover and verifier alike, an MSM is the per-point ladder plus a tree of
+adds below ``config.FUSED_ACCUM_MIN`` bases and the signed-bucket
+accumulator (``ops/pippenger.py``) from that size up, the JAX package's
+routes (``_msm_point`` :177, ``_pippenger_rows`` :124).  At n = 64 a merged
+batch of B proofs has 130 + 17 B bases, so from B = 113 it takes the
+accumulator; the prover's MSMs have at most 2n + 1 = 129 bases.
 """
 from __future__ import annotations
 
@@ -35,7 +49,8 @@ from ..utils.oracle import ELL
 from .device_transcript import DeviceTranscript
 from .generators import Generators, get_generators
 from .rangeproof import (DOMAIN_Q, DOMAIN_X, DOMAIN_Y, DOMAIN_Z, IPA_DOMAIN,
-                         RangeProof)
+                         InnerProductProof, ProveError, RangeProof,
+                         validate_range_input)
 
 
 def _unpack_gens(gp: torch.Tensor, n: int):
@@ -68,9 +83,9 @@ def _msm_point(points: C.GE, sc: torch.Tensor) -> C.GE:
 
     From ``_fused_msm_min()`` bases the signed-bucket accumulator (the
     ge_bucket_accum kernel on the card); below it the ladder route,
-    ``curve.scalarmult`` (the ge_ladder_win kernel on the card, always, which
-    is what the JAX package's ``_ladder`` :86 ensures there) and a tree of
-    adds."""
+    ``curve.scalarmult`` (on the card always its kernel, ge_ladder_win or
+    ge_ladder_bin as ``config.LADDER_WINDOW`` says, which is what the JAX
+    package's ``_ladder`` :86 ensures there) and a tree of adds."""
     fl = SC.to_field_limbs(sc)
     if fl.shape[0] >= _fused_msm_min():
         return C.GE(*(c[0] for c in _pippenger_rows(points, fl[None])))
@@ -82,6 +97,20 @@ def _scan_mul(init: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     for j in range(rows.shape[-3]):
         init = SC.mul(init, rows[..., j, :, :])
     return init
+
+
+def _msm_compressed(points: C.GE, sc: torch.Tensor) -> torch.Tensor:
+    """B MSMs, compressed: points GE [m] (shared) or [B, m] (per row), sc
+    [B, m, SL] scalar limbs -> uint8 [B, 32], one batch inversion for the B
+    results.  Below ``_fused_msm_min()`` bases the ladder (one
+    ``curve.scalarmult`` over [B, m]) and a tree of adds per row; from it
+    the accumulator (``_pippenger_rows``)."""
+    fl = SC.to_field_limbs(sc)                       # [B, m, 20]
+    if sc.shape[1] >= _fused_msm_min():
+        return C.to_bytes_batch(_pippenger_rows(points, fl))
+    acc = C.scalarmult(points, fl)                   # GE [B, m]
+    return C.to_bytes_batch(C.tree_reduce(C.GE(*(c.transpose(0, 1)
+                                                 for c in acc))))
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,6 +228,208 @@ def _batch_verify_merged(blobs: torch.Tensor, rnd: torch.Tensor,
     return valid.all() & C.is_identity(res)
 
 
+# --- the prover --------------------------------------------------------------
+def _ipa_masks(n: int):
+    """Per-round fold bookkeeping of the n-element IPA: after round j the
+    original index k sits at folded position k mod (n >> j), and its
+    high/low side is bit log2(n)-1-j of k.  Per round (h, hi, idx_a, idx_bR,
+    idx_bL), as numpy arrays."""
+    k = np.arange(n)
+    rounds = []
+    m = n
+    while m > 1:
+        h = m // 2
+        own = k % m
+        hi = own >= h                                # [n] bool
+        idx_a = np.where(hi, own - h, own)           # index into a_L / a_R
+        idx_bR = np.where(hi, 0, own)                # b_R gather (lo side)
+        idx_bL = np.where(hi, own - h, 0)            # b_L gather (hi side)
+        rounds.append((h, hi, idx_a, idx_bR, idx_bL))
+        m = h
+    return rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _ipa_scan_tables(n: int):
+    """The rounds' gather tables stacked over the rounds (numpy, [k, ...]),
+    for a_vec / b_vec kept at the fixed length n (active prefix, zero
+    tail): every round then has the same shapes, and its L / R MSM is
+    [2, n+1].  None for n < 2 (no rounds)."""
+    rounds = _ipa_masks(n)
+    if not rounds:
+        return None
+    cols = {key: [] for key in ("hi", "act", "shift", "tA_L", "tB_R",
+                                "tA_R", "tB_L", "hi_idx", "lo_idx",
+                                "bidx")}
+    i = np.arange(n)
+    for (hsz, hi_mask, idx_a, idx_bR, idx_bL) in rounds:
+        hi_idx = np.where(hi_mask)[0]
+        lo_idx = np.where(~hi_mask)[0]
+        cols["hi"].append(hi_mask)
+        cols["act"].append(i < hsz)
+        cols["shift"].append(np.where(i < hsz, i + hsz, 0))
+        # composed into the full a_vec / b_vec: a_L[j] = a_vec[j],
+        # a_R[j] = a_vec[hsz + j], b likewise
+        cols["tA_L"].append(idx_a[hi_idx])
+        cols["tB_R"].append(hsz + idx_bR[lo_idx])
+        cols["tA_R"].append(hsz + idx_a[lo_idx])
+        cols["tB_L"].append(idx_bL[hi_idx])
+        cols["hi_idx"].append(hi_idx)
+        cols["lo_idx"].append(lo_idx)
+        cols["bidx"].append(np.stack([
+            np.concatenate([hi_idx, n + lo_idx, [2 * n]]),
+            np.concatenate([lo_idx, n + hi_idx, [2 * n]])]))
+    return {key: np.stack(v) for key, v in cols.items()}
+
+
+def _ipa_prove_scan(tr: DeviceTranscript, a_vec, b_vec, wG, wH, w, bases,
+                    n: int):
+    """The prover's IPA rounds over the bases [G | H | g] (with Q = w g
+    implicit and the H weights wH): per round the cross terms c_L, c_R,
+    the L / R commitment pair as one [2, n+1] MSM, the challenge u, and the
+    folds.  a_vec, b_vec [n, SL] fixed length.  Returns (a_vec, b_vec,
+    uint8 [2k, 32] = L(k) R(k))."""
+    tabs = _ipa_scan_tables(n)
+    dev = a_vec.device
+    if tabs is None:
+        return a_vec, b_vec, torch.zeros((0, 32), dtype=torch.uint8,
+                                         device=dev)
+    t = {key: on_device(v, dev) for key, v in tabs.items()}
+    Ls, Rs = [], []
+    for j in range(t["hi"].shape[0]):
+        act = t["act"][j][:, None]
+        aLf = torch.where(act, a_vec, 0)
+        aRf = torch.where(act, a_vec[t["shift"][j]], 0)
+        bLf = torch.where(act, b_vec, 0)
+        bRf = torch.where(act, b_vec[t["shift"][j]], 0)
+        c_L = SC.inner(aLf, bRf)
+        c_R = SC.inner(aRf, bLf)
+        hi_idx, lo_idx = t["hi_idx"][j], t["lo_idx"][j]
+        scL = torch.cat([SC.mul(a_vec[t["tA_L"][j]], wG[hi_idx]),
+                         SC.mul(b_vec[t["tB_R"][j]], wH[lo_idx]),
+                         SC.mul(c_L, w)[None]])
+        scR = torch.cat([SC.mul(a_vec[t["tA_R"][j]], wG[lo_idx]),
+                         SC.mul(b_vec[t["tB_L"][j]], wH[hi_idx]),
+                         SC.mul(c_R, w)[None]])
+        bases_lr = C.GE(*(c[t["bidx"][j]] for c in bases))   # [2, n+1]
+        lr = _msm_compressed(bases_lr, torch.stack([scL, scR]))
+        tr.append_point(b"ipL", lr[0])
+        tr.append_point(b"ipR", lr[1])
+        u = tr.challenge(IPA_DOMAIN)
+        u_inv = SC.invert(u)
+        a_vec = torch.where(act, SC.add(SC.mul(aLf, u), SC.mul(aRf, u_inv)), 0)
+        b_vec = torch.where(act, SC.add(SC.mul(bLf, u_inv), SC.mul(bRf, u)), 0)
+        hi_m = t["hi"][j][:, None]
+        wG = torch.where(hi_m, SC.mul(wG, u), SC.mul(wG, u_inv))
+        wH = torch.where(hi_m, SC.mul(wH, u_inv), SC.mul(wH, u))
+        Ls.append(lr[0])
+        Rs.append(lr[1])
+    return a_vec, b_vec, torch.stack(Ls + Rs)
+
+
+def _prove(gp: torch.Tensor, aL_bits: torch.Tensor, scp: torch.Tensor,
+           n: int) -> torch.Tensor:
+    """The n-bit prover, the body of the JAX package's ``_prove_fn(n)``.
+
+    gp: packed generators [2n+2, 80]; aL_bits: [n] int32, the value's bits;
+    scp: [2n+6, SL] = [value, blinding, alpha, rho, tau1, tau2, sL(n),
+    sR(n)].  Returns uint8 [5 + 2k + 5, 32] = V A S T1 T2 | L(k) R(k) |
+    taux mu t_hat a b.  Static shapes and no host sync."""
+    dev = gp.device
+    G, H, g, h = _unpack_gens(gp, n)
+    value_sc, blinding, alpha, rho, tau1, tau2 = scp[:6].unbind(0)
+    sL, sR = scp[6:6 + n], scp[6 + n:6 + 2 * n]
+    tr = DeviceTranscript(b"tpu-bulletproofs/range", device=dev)
+    tr.append(b"n", n.to_bytes(4, "little"))
+
+    # aL in scalar-limb form; aR = aL - 1 (mod l)
+    aL = SC.zeros((n,), dev)
+    aL[:, 0] = aL_bits
+    aR = SC.sub(aL, SC.ones((n,), dev))
+
+    # V = value g + blinding h; A = alpha h + <aL, G> + <aR, H>;
+    # S = rho h + <sL, G> + <sR, H>
+    gh = M.concat_ge(g, h)
+    v_b = _msm_compressed(gh, torch.stack([value_sc, blinding])[None])[0]
+    as_b = _msm_compressed(M.concat_ge(h, G, H), torch.stack([
+        torch.cat([alpha[None], aL, aR]), torch.cat([rho[None], sL, sR])]))
+    tr.append_point(b"V", v_b)
+    tr.append_point(b"A", as_b[0])
+    tr.append_point(b"S", as_b[1])
+    y = tr.challenge(DOMAIN_Y)
+    z = tr.challenge(DOMAIN_Z)
+
+    two_n = on_device(_parts_consts(n)[0], dev)
+    y_n = SC.powers(y, n)
+    z2 = SC.sq(z)
+    l0 = SC.sub(aL, z[None])
+    l1 = sL
+    r0 = SC.add(SC.mul(y_n, SC.add(aR, z[None])), SC.mul(two_n, z2[None]))
+    r1 = SC.mul(y_n, sR)
+    t0 = SC.inner(l0, r0)
+    t2 = SC.inner(l1, r1)
+    t1 = SC.sub(SC.inner(SC.add(l0, l1), SC.add(r0, r1)), SC.add(t0, t2))
+
+    t_b = _msm_compressed(gh, torch.stack([torch.stack([t1, tau1]),
+                                           torch.stack([t2, tau2])]))
+    tr.append_point(b"T1", t_b[0])
+    tr.append_point(b"T2", t_b[1])
+    x = tr.challenge(DOMAIN_X)
+
+    l_vec = SC.add(l0, SC.mul(l1, x[None]))
+    r_vec = SC.add(r0, SC.mul(r1, x[None]))
+    t_hat = SC.inner(l_vec, r_vec)
+    taux = SC.add(SC.add(SC.mul(tau2, SC.sq(x)), SC.mul(tau1, x)),
+                  SC.mul(z2, blinding))
+    mu = SC.add(alpha, SC.mul(rho, x))
+    tr.append_scalar(b"taux", taux)
+    tr.append_scalar(b"mu", mu)
+    tr.append_scalar(b"t", t_hat)
+    w = tr.challenge(DOMAIN_Q)
+
+    # the IPA over (G, H' = y^-i H) with Q = w g implicit
+    wH = SC.powers(SC.invert(y), n)
+    wG = SC.ones((n,), dev)
+    a_vec, b_vec, lr = _ipa_prove_scan(tr, l_vec, r_vec, wG, wH, w,
+                                       M.concat_ge(G, H, g), n)
+    scalars = SC.to_bytes(torch.stack([taux, mu, t_hat, a_vec[0], b_vec[0]]))
+    return torch.cat([v_b[None], as_b, t_b, lr, scalars])
+
+
+def prove(value: int, blinding: int, n: int, gens: Generators | None = None,
+          device="cuda") -> RangeProof:
+    """Prove value in [0, 2^n) under the commitment value g + blinding h.
+    Runs on `gens.device`, else on `device` (the card unless the caller
+    asks for the CPU); the nonces and blinding vectors come from
+    ``secrets``.  Raises ProveError for a value out of range or an n that is
+    not a power of two."""
+    if not validate_range_input(value, n):
+        raise ProveError(f"value out of range [0, 2^{n})")
+    if n < 1 or n & (n - 1) != 0:
+        raise ProveError("n must be a power of two")
+    gens = gens or get_generators(n, device)
+    dev = gens.device
+    aL_bits = torch.tensor([(value >> i) & 1 for i in range(n)],
+                           dtype=torch.int32, device=dev)
+    scp = SC.from_ints([value, blinding % ELL]
+                       + [SC.sc_random() for _ in range(4 + 2 * n)], dev)
+    return _blob_proof(_prove(gens.pack(n), aL_bits, scp, n).cpu().numpy(),
+                       n)
+
+
+def _blob_proof(blob: np.ndarray, n: int) -> RangeProof:
+    """The prover's uint8 [5 + 2k + 5, 32] blob as a RangeProof."""
+    k = n.bit_length() - 1
+    rows = [bytes(r) for r in blob]
+    taux, mu, t_hat, a, b = (int.from_bytes(r, "little")
+                             for r in rows[5 + 2 * k:])
+    return RangeProof(n=n, V=rows[0], A=rows[1], S=rows[2], T1=rows[3],
+                      T2=rows[4], taux=taux, mu=mu, t_hat=t_hat,
+                      ip=InnerProductProof(n=n, L=rows[5:5 + k],
+                                           R=rows[5 + k:5 + 2 * k], a=a, b=b))
+
+
+# --- the verifier ------------------------------------------------------------
 def _proof_blob(proof: RangeProof) -> np.ndarray:
     """uint8: point bytes then canonical scalar bytes."""
     parts = [proof.V, proof.A, proof.S, proof.T1, proof.T2] + \

@@ -40,5 +40,10 @@ class RangeProof:
     ip: InnerProductProof
 
 
+class ProveError(ValueError):
+    """The prover refuses its input (a value out of range, an n that is not
+    a power of two)."""
+
+
 def validate_range_input(value: int, n: int) -> bool:
     return 0 <= value < (1 << n)

@@ -3,6 +3,7 @@
     ge_add         <- cudabulletproof_tpu/ops/pallas_curve.py::_add_kernel
     ge_double      <- pallas_curve.py::_double_kernel
     ge_ladder_win  <- pallas_curve.py::_ladder_win_kernel
+    ge_ladder_bin  <- pallas_curve.py::_ladder_kernel
     ge_reduce      <- pallas_curve.py::_reduce_kernel
     ge_bucket_accum <- pallas_curve.py::_bucket_accum_kernel (two kernels:
                        the bucket pass and the window/Horner combine)
@@ -12,7 +13,8 @@ Each wrapper broadcasts the batch dims of its CUDA int32 operands, packs a
 current stream into an output made with ``torch.empty``, and unpacks the
 result to the batch shape.  It raises on anything the kernel does not take;
 there is no fallback.  The plain twins live in ``ops/curve.py``
-(``add_plain``, ``double_plain``, ``scalarmult_plain``, ``reduce_tiles_plain``)
+(``add_plain``, ``double_plain``, ``scalarmult_plain``,
+``scalarmult_bin_plain``, ``reduce_tiles_plain``)
 and ``ops/pippenger.py`` (``bucket_accum_plain``).
 
 Results are (x, y, z, t) tuples; ``ops/curve.py`` wraps them in its ``GE``.
@@ -27,8 +29,8 @@ from ..utils import build
 from .cuda_field import flat_operands
 
 L = 20
-launches = {"ge_add": 0, "ge_double": 0, "ge_ladder_win": 0, "ge_reduce": 0,
-            "ge_bucket_accum": 0}
+launches = {"ge_add": 0, "ge_double": 0, "ge_ladder_win": 0,
+            "ge_ladder_bin": 0, "ge_reduce": 0, "ge_bucket_accum": 0}
 REDUCE_TILE = 256            # points a ge_reduce block sums (csrc kReduceTile)
 
 
@@ -61,12 +63,22 @@ def double(p):
     return _run("ge_double", batch, a)
 
 
-def ladder(p, s: torch.Tensor):
-    """p GE [...] times s [..., 20] scalar limbs in [0, 2^13)."""
-    coords = list(p) + [s]
-    batch, flats = flat_operands(L, *coords)
+def _ladder(name: str, p, s: torch.Tensor):
+    batch, flats = flat_operands(L, *p, s)
     rows = torch.cat(flats[:4], dim=1)
-    return _run("ge_ladder_win", batch, rows, flats[4])
+    return _run(name, batch, rows, flats[4])
+
+
+def ladder(p, s: torch.Tensor):
+    """p GE [...] times s [..., 20] scalar limbs in [0, 2^13): the 4-bit
+    fixed-window ladder."""
+    return _ladder("ge_ladder_win", p, s)
+
+
+def ladder_bin(p, s: torch.Tensor):
+    """p GE [...] times s [..., 20] scalar limbs in [0, 2^13): the binary
+    double-and-add ladder."""
+    return _ladder("ge_ladder_bin", p, s)
 
 
 def reduce_tiles(p):

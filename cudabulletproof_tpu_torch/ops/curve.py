@@ -6,12 +6,14 @@ A batch of points is a ``GE`` of four int32 ``[..., 20]`` limb tensors
 hand-written CUDA kernel (``ops/cuda_curve.py``) on CUDA tensors and their
 plain torch twin (``add_plain``, ``double_plain``, ``scalarmult_plain``) on CPU
 tensors.  The twins follow the Pallas kernels' op order -- ``_padd`` (the same
-as the JAX package's ``add_xla``), the dedicated doubling ``_pdbl``, and the
-windowed ladder ``_ladder_win_kernel`` -- so kernel and twin agree limb for
-limb.  (The JAX package's CPU ``double`` is ``add_xla(p, p)``, whose limbs
-differ from ``_pdbl``'s; the point is the same.)  ``tree_reduce_tiles`` sums
-tiles of 256 points with the ge_reduce kernel (twin ``reduce_tiles_plain``,
-the ``_reduce_kernel`` order).
+as the JAX package's ``add_xla``), the dedicated doubling ``_pdbl``, the
+windowed ladder ``_ladder_win_kernel`` and the binary ladder
+``_ladder_kernel`` (``scalarmult_bin_plain``, twin of ge_ladder_bin) -- so
+kernel and twin agree limb for limb.  ``config.LADDER_WINDOW`` picks the
+ladder at call time.  (The JAX package's CPU ``double`` is
+``add_xla(p, p)``, whose limbs differ from ``_pdbl``'s; the point is the
+same.)  ``tree_reduce_tiles`` sums tiles of 256 points with the ge_reduce
+kernel (twin ``reduce_tiles_plain``, the ``_reduce_kernel`` order).
 """
 from __future__ import annotations
 
@@ -147,7 +149,8 @@ def select(cond: torch.Tensor, a: GE, b: GE) -> GE:
 
 
 # --- scalar multiplication ---------------------------------------------------
-WINDOWS = (F.L * F.W) // config.LADDER_WINDOW   # 65 four-bit windows, 260 bits
+SCALAR_BITS = F.L * F.W                 # 260 bits of 20 13-bit limbs
+WINDOWS = SCALAR_BITS // 4              # 65 four-bit windows
 # window w (0 = most significant) reads value bits 256-4w .. 259-4w: limb
 # k = lo // 13 shifted right by off = lo % 13, OR'd with limb k+1 shifted
 # left by 13 - off (bits above 3 are masked off)
@@ -188,15 +191,36 @@ def scalarmult_plain(p: GE, s: torch.Tensor) -> GE:
     return acc
 
 
+def scalarmult_bin_plain(p: GE, s: torch.Tensor) -> GE:
+    """Plain twin of the ge_ladder_bin kernel: p [n] times s [n, 20] (scalar
+    limbs in [0, 2^13)), binary double-and-add over the 260 bits, most
+    significant first (bit 12 of limb 19 down to bit 0 of limb 0).  A step
+    doubles with the unified add, as the Pallas ``_ladder_kernel`` does (not
+    the dedicated doubling), adds p, and keeps the sum where the bit is 1."""
+    acc = identity(s.shape[:-1], s.device)
+    for k in range(SCALAR_BITS - 1, -1, -1):
+        bit = (s[:, k // F.W] >> (k % F.W)) & 1
+        acc = add_plain(acc, acc)
+        acc = select(bit, add_plain(acc, p), acc)
+    return acc
+
+
 def scalarmult(p: GE, s: torch.Tensor) -> GE:
-    """Batched fixed-window scalar multiplication: p [...] times s [..., 20]
-    (scalars < 2^253 as 13-bit limbs, as ``scalar_field.to_field_limbs``
-    gives them); batch dims broadcast."""
+    """Batched scalar multiplication: p [...] times s [..., 20] (scalars <
+    2^253 as 13-bit limbs, as ``scalar_field.to_field_limbs`` gives them);
+    batch dims broadcast.  The ladder is ``config.LADDER_WINDOW``'s: 4 the
+    fixed-window one (ge_ladder_win), 0 the binary one (ge_ladder_bin)."""
+    window = config.LADDER_WINDOW
+    if window not in (4, 0):
+        raise ValueError(f"config.LADDER_WINDOW is {window!r}; the ladders "
+                         "are 4 (fixed window) and 0 (binary)")
     batch = torch.broadcast_shapes(p.batch_shape, s.shape[:-1])
     if not (_on_cpu(p) and s.device.type == "cpu"):
-        return GE(*cuda_curve.ladder(p, s))
+        kernel = cuda_curve.ladder if window == 4 else cuda_curve.ladder_bin
+        return GE(*kernel(p, s))
+    plain = scalarmult_plain if window == 4 else scalarmult_bin_plain
     flat = GE(*(c.expand(*batch, F.L).reshape(-1, F.L) for c in p))
-    out = scalarmult_plain(flat, s.expand(*batch, F.L).reshape(-1, F.L))
+    out = plain(flat, s.expand(*batch, F.L).reshape(-1, F.L))
     return GE(*(c.reshape(*batch, F.L) for c in out))
 
 
@@ -289,14 +313,15 @@ def is_small_order(p: GE) -> torch.Tensor:
 
 
 def tree_reduce(p: GE) -> GE:
-    """Sum a batch [n] of points: identity-pad to a power of two, then halve
-    with batched adds (log2 n launches of the add kernel on the card)."""
+    """Sum points GE [n, ...] over dim 0: identity-pad to a power of two,
+    then halve with batched adds (log2 n launches of the add kernel on the
+    card), the low half plus the high half."""
     n = p.x.shape[0]
     m = 1
     while m < n:
         m *= 2
     if m != n:
-        pad = identity((m - n,), p.x.device)
+        pad = identity((m - n, *p.batch_shape[1:]), p.x.device)
         p = GE(*(torch.cat([c, pc]) for c, pc in zip(p, pad)))
     while m > 1:
         half = m // 2

@@ -42,6 +42,7 @@ SIGNATURES = {
     "bp_ge_add": [_P, _P, _P, _N, _P],          # p, q, out, n, stream
     "bp_ge_double": [_P, _P, _N, _P],           # p, out, n, stream
     "bp_ge_ladder_win": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
+    "bp_ge_ladder_bin": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
     "bp_fe_invert": [_P, _P, _N, _P],           # a, out, n, stream
     "bp_ge_reduce": [_P, _P, _N, _P],           # p, out, n, stream
     # pre, dg, part, out, n, nw, w, threads, slices, stream

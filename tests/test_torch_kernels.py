@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+import make_prove_golden as golden
+from cudabulletproof_tpu_torch import config
+from cudabulletproof_tpu_torch.models import fused as TFU
+from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
                                            curve as TC, field as TF,
                                            msm as TM, pippenger as TP)
@@ -85,8 +89,44 @@ def test_curve_kernels_equal_twins(dev, n):
     s = TF.from_ints(vals, dev)
     for got, want in ((cuda_curve.add(p, q), TC.add_plain(p, q)),
                       (cuda_curve.double(p), TC.double_plain(p)),
-                      (cuda_curve.ladder(p, s), TC.scalarmult_plain(p, s))):
+                      (cuda_curve.ladder(p, s), TC.scalarmult_plain(p, s)),
+                      (cuda_curve.ladder_bin(p, s),
+                       TC.scalarmult_bin_plain(p, s))):
         assert torch.equal(TC.flatten(got), TC.flatten(want))
+
+
+@pytest.mark.parametrize("n", [2, 130, 258])
+def test_ladder_bin_kernel_equals_twin(dev, n):
+    """The binary ladder at the prover's shapes (V, an IPA round, A|S at
+    n = 64): weak-limb rows with the identity, the base and the 8-torsion
+    points among them, against random and edge scalars (0, 1, 2, l-1,
+    2^253-1, all limbs 8191); then one point broadcast against n scalars,
+    and [2, m] batches, as the prover calls it."""
+    rng = np.random.default_rng(n)
+    rows = _rand(rng, (n, 80), dev)
+    tor = [oracle.IDENTITY, oracle.BASE] + oracle.small_order_points()
+    rows[:min(n, len(tor))] = TC.flatten(TC.from_oracle(tor[:n], dev))
+    p = TC.unflatten(rows)
+    edges = [_raw(v) for v in (0, 1, 2, oracle.ELL - 1, (1 << 253) - 1)] + [
+        [0x1FFF] * 20]
+    vals = [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
+            for _ in range(n)]
+    s = TF.from_ints(vals, dev)
+    s[-min(n, len(edges)):] = torch.tensor(edges[:n], dtype=torch.int32,
+                                           device=dev)
+    got = cuda_curve.ladder_bin(p, s)
+    want = TC.scalarmult_bin_plain(p, s)
+    assert torch.equal(TC.flatten(got), TC.flatten(want))
+    one = TC.GE(*(c[1] for c in p))                       # unbatched
+    got = TC.GE(*cuda_curve.ladder_bin(one, s))
+    want = TC.scalarmult_bin_plain(TC.GE(*(c.expand(n, 20) for c in one)), s)
+    assert torch.equal(TC.flatten(got), TC.flatten(want))
+    pair = TC.GE(*(torch.stack([c, c.flip(0)]) for c in p))   # [2, n]
+    got = TC.GE(*cuda_curve.ladder_bin(pair, s))
+    assert got.x.shape == (2, n, 20)
+    flipped = TC.GE(*(c.flip(0) for c in p))
+    assert torch.equal(TC.flatten(TC.GE(*(c[1] for c in got))),
+                       TC.flatten(TC.scalarmult_bin_plain(flipped, s)))
 
 
 @pytest.mark.parametrize("n", [147, 1000])
@@ -152,11 +192,33 @@ def test_msm_routes_match_oracle(dev):
          TM.config.MSM_ACCUM_CHUNK) = old
 
 
-def test_ladder_matches_oracle(dev):
+@pytest.mark.parametrize("window", [4, 0])
+def test_ladder_matches_oracle(dev, monkeypatch, window):
+    monkeypatch.setattr(config, "LADDER_WINDOW", window)
     pts = [oracle.hash_to_point(b"kern", i) for i in range(3)]
     scs = [0, oracle.ELL - 1, 0xDEADBEEF << 180]
     got = TC.scalarmult(TC.from_oracle(pts, dev), TF.from_ints(scs, dev))
     assert TC.to_oracle(got) == [k * p for k, p in zip(scs, pts)]
+
+
+@pytest.mark.parametrize("window", [4, 0])
+def test_prove_on_card_matches_jax_fixture(dev, monkeypatch, window):
+    """``_prove`` at n = 8 on the card writes the JAX package's committed
+    blob (tests/golden/prove_n8.npz) byte for byte, launching the ladder
+    kernel of the knob and not the other."""
+    with np.load(golden.golden_path(8)) as f:
+        ref = {k: f[k] for k in f.files}
+    gp = torch.from_numpy(ref["gp"]).to(dev)
+    assert torch.equal(gp, get_generators(8, dev).table)
+    monkeypatch.setattr(config, "LADDER_WINDOW", window)
+    before = dict(cuda_curve.launches)
+    blob = TFU._prove(gp, torch.from_numpy(ref["aL_bits"]).to(dev),
+                      torch.from_numpy(ref["scp"]).to(dev), 8)
+    assert np.array_equal(blob.cpu().numpy(), ref["blob"])
+    used, unused = (("ge_ladder_win", "ge_ladder_bin") if window == 4
+                    else ("ge_ladder_bin", "ge_ladder_win"))
+    assert cuda_curve.launches[used] > before[used]
+    assert cuda_curve.launches[unused] == before[unused]
 
 
 def test_launch_counts_and_refusals(dev):
@@ -178,13 +240,24 @@ def test_launch_counts_and_refusals(dev):
     TC.add(p, p)
     TC.double(p)
     TC.scalarmult(p, TF.from_ints([1, 2], dev))
+    cuda_curve.ladder_bin(p, TF.from_ints([1, 2], dev))
     TC.tree_reduce_tiles(p)
     pre = torch.zeros((2, 80), dtype=torch.int32, device=dev)
     dg = torch.ones((64, 2), dtype=torch.int32, device=dev)
     cuda_curve.bucket_accum(pre, dg, 4, 32, 1)
     assert {k: cuda_curve.launches[k] - before[k] for k in before} == {
-        "ge_add": 1, "ge_double": 1, "ge_ladder_win": 1, "ge_reduce": 1,
-        "ge_bucket_accum": 1}
+        "ge_add": 1, "ge_double": 1, "ge_ladder_win": 1, "ge_ladder_bin": 1,
+        "ge_reduce": 1, "ge_bucket_accum": 1}
+    s = TF.from_ints([1, 2], dev)
+    with pytest.raises(ValueError):
+        cuda_curve.ladder_bin(TC.identity((2,)), s)       # points on the CPU
+    with pytest.raises(TypeError):
+        cuda_curve.ladder_bin(p, s.long())
+    with pytest.raises(ValueError):
+        cuda_curve.ladder_bin(p, s[:, :19])
+    with pytest.raises(RuntimeError):
+        cuda_curve.ladder_bin(p, TF.from_ints([1, 2, 3], dev))   # 2 vs 3
+    assert cuda_curve.launches["ge_ladder_bin"] == before["ge_ladder_bin"] + 1
     inv = cuda_field.launches["fe_invert"]
     TF.invert(a)
     assert cuda_field.launches["fe_invert"] == inv + 1
