@@ -8,26 +8,43 @@ Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once.
-  3. kernels: each of the ten kernels against its plain torch twin on the
-     card, on inputs from a fixed numpy seed at the paths' shapes plus edge
-     inputs; equality must be exact, limb for limb (tolerance 0: integer
-     arithmetic).  Kernel and twin times, at the last shape of each kernel:
+  3. kernels: each of the fourteen kernels against its plain torch twin on
+     the card, on inputs from a fixed numpy seed at the paths' shapes plus
+     edge inputs; equality must be exact, limb for limb (tolerance 0:
+     integer arithmetic).  The sort-plus-scan kernels: ge_seg_scan at
+     [depth 64, lanes 1024] (one window at 2^16, runs of equal digits that
+     straddle lanes) and [32, 1024] (the B = 1024 batch's windows), and
+     small shapes with all heads, no heads and a head at every lane start
+     but one; ge_bucket_fold at 8191 and 2047 rows (w = 13 and 11) and
+     fewer rows than lanes, with the identity, the base and the 8-torsion
+     points among them; sort_hist / sort_rank at 2^16 keys with radix 64
+     and 128 (the 6 + 7 bit passes of w = 13), random, all equal and two
+     values.  Kernel and twin times, at the last shape of each kernel:
      median of CUDA-event runs; the bound is the larger of the kernel's
      int32 multiply-adds over the card's IMAD rate and its bytes over the
-     HBM rate.
+     HBM rate; the sort kernels' library yardstick is a stable
+     torch.argsort of the same keys.
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
-     256 (2306 and 4482 MSM bases: the accumulator MSM): honest batches
-     accepted, a batch with one tampered proof rejected, the native
-     verifier agreeing on every proof.
+     256 (2306 and 4482 MSM bases: the accumulator MSM), and with
+     config.MSM_ACCUM_KERNEL off B = 1024 (17,538 bases, padded to 32,768:
+     the sort-plus-scan msm_pippenger at w = 11): honest batches accepted, a
+     batch with one tampered proof rejected, the native verifier agreeing
+     on every proof.
   6. msm: msm_auto on bench.py's inputs (P_i = (i+1) B, s_i =
      SHA-256("bench%d" % i) mod l) at 2^10 (ladder + tile reduction), 2^11
      (Straus), 2^16 (accumulator) and 2^20 (16 accumulator chunks), each
      equal to (sum (i+1) s_i mod l) B as compressed bytes; the 2^16 result
      against the native library's MSM; points per second; and the sweep of
      the accumulator over w = 4..8 and three block shapes at 2^12, 2^13 and
-     2^16, each result exact.
+     2^16, each result exact.  Then with config.MSM_ACCUM_KERNEL off (the
+     sort-plus-scan route): msm_auto at 2^16 (one msm_pippenger, w = 13)
+     and 2^20 (16 chunks and a fold), each equal to the same exact bytes
+     and the 2^16 one to the native MSM; msm_pippenger at 2^16 under
+     config.MSM_PALLAS_SORT (the counting-sort kernels), the same bytes;
+     points per second of each; sort.grouping_order against a stable
+     torch.argsort of one window's digits at 2^16.
   7. prove, n = 64: fused._prove on fixed inputs (the JAX package's n = 64
      fixture, tests/golden/prove_n64.npz: its generators, bits and
      randomness) under config.LADDER_WINDOW = 4 and = 0, each path counted
@@ -39,11 +56,13 @@ Phases, each raising on failure (so the exit code is nonzero):
      accepts it.
   8. the main paths, counted: the launch counters are set to 0 before each
      path (one verify; a batch of 16; batches of 128 and 256; the four
-     msm_auto sizes; and phase 7's) and read after it; every one of the ten
-     kernels must launch on them.  Then wall times (fused.prove under each
+     msm_auto sizes; with the accumulator off msm_auto at 2^16 and 2^20,
+     msm_pippenger at 2^16 under MSM_PALLAS_SORT and the batch of 1024; and
+     phase 7's) and read after it; every one of the fourteen kernels must
+     launch on them.  Then wall times (fused.prove under each
      ladder, median of 3, with fresh randomness: the last proof of each must
-     pass the native verifier) and the torch profiler's view of one verify
-     and one prove.
+     pass the native verifier) and the torch profiler's view of one verify,
+     one prove and one msm_auto at 2^16 with the accumulator off.
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -66,10 +85,10 @@ import torch
 from cudabulletproof_tpu_torch import config
 from cudabulletproof_tpu_torch.models import fused
 from cudabulletproof_tpu_torch.models.generators import get_generators
-from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field
+from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field, cuda_sort
 from cudabulletproof_tpu_torch.ops import curve as C, field as F
 from cudabulletproof_tpu_torch.ops import msm as M, pippenger as PP
-from cudabulletproof_tpu_torch.ops import scalar_field as SC
+from cudabulletproof_tpu_torch.ops import scalar_field as SC, sort as SO
 from cudabulletproof_tpu_torch.utils import build, native, oracle
 from cudabulletproof_tpu_torch.utils.serialization import (
     deserialize_range_proof, serialize_range_proof)
@@ -78,6 +97,9 @@ SEED = 20261016
 N_BITS = 64
 BATCH = 16
 BIG_BATCHES = (128, 256)
+# the merged batch that crosses config.FUSED_PIPPENGER_MIN with the
+# accumulator off: 130 + 17 * 1024 = 17,538 bases
+SCAN_BATCH = 1024
 # shapes on the paths at n = 64: 17 proof points per proof, so 17 / 272
 # field elements decompressed for B = 1 / 16; the MSM has 2n+2+17 = 147
 # bases for one proof and 2n+2+16*17 = 402 for the merged batch of 16; the
@@ -101,6 +123,14 @@ SWEEP_WINDOWS = (4, 5, 6, 7, 8)
 SWEEP_POINTS_PER_BUCKET = (1, 4, 16)
 NATIVE_MSM_SIZE = 1 << 16
 NATIVE_MSM_TIMEOUT_S = 60
+# the sort-plus-scan route: msm_auto sizes with the accumulator off, and
+# the scan and fold shapes of its windows: [depth, lanes] of a window at
+# 2^16 (w = 13) and of the batch of 1024 (32,768 bases, w = 11), the fold's
+# 2^w - 1 rows in 128 lanes
+SCAN_MSM_SIZES = (1 << 16, 1 << 20)
+SCAN_SHAPES = ((32, 1024, 1 << 11), (64, 1024, 1 << 13))
+FOLD_ROWS = (1, 100, 128, 2047, 8191)
+SORT_KEYS = 1 << 16
 
 # The card's rates for the bounds: HBM3 at 3.35 TB/s (NVIDIA's H100 SXM data
 # sheet); 64 32-bit integer multiply-adds per clock per SM (CUDA C++
@@ -141,6 +171,14 @@ KERNELS = [
      "cudabulletproof_tpu/ops/pallas_curve.py:610"),
     ("ge_bucket_accum", "accum_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_curve.py:468"),
+    ("ge_seg_scan", "scan_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_curve.py:232"),
+    ("ge_bucket_fold", "scan_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_curve.py:371"),
+    ("sort_hist", "scan_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_sort.py:41"),
+    ("sort_rank", "scan_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_sort.py:56"),
 ]
 
 
@@ -149,13 +187,24 @@ def log(*args):
 
 
 def reset_counts():
-    for mod in (cuda_field, cuda_curve):
+    for mod in (cuda_field, cuda_curve, cuda_sort):
         for k in mod.launches:
             mod.launches[k] = 0
 
 
 def counts() -> dict:
-    return {**cuda_field.launches, **cuda_curve.launches}
+    return {**cuda_field.launches, **cuda_curve.launches,
+            **cuda_sort.launches}
+
+
+def accum_off(fn):
+    """fn() with config.MSM_ACCUM_KERNEL off (the sort-plus-scan route),
+    restored after it."""
+    config.MSM_ACCUM_KERNEL = False
+    try:
+        return fn()
+    finally:
+        config.MSM_ACCUM_KERNEL = True
 
 
 # --- 1. device ------------------------------------------------------------
@@ -238,9 +287,60 @@ def accum_work(dg: torch.Tensor, n: int, w: int) -> tuple:
     return imads, n * PT_BYTES + dg.numel() * 4 + PT_BYTES
 
 
+def seg_scan_adds(heads: np.ndarray, depth: int, lanes: int) -> int:
+    """Unified adds of the segmented scan on these heads (sorted order):
+    one per element that starts no segment, and one per lane of each
+    cross-lane stage that merges (its run flag still 0)."""
+    h = heads.reshape(lanes, depth)
+    adds = int((~h).sum())
+    f = h.any(axis=1)
+    lane = np.arange(lanes)
+    s = 1
+    while s < lanes:
+        adds += int(((lane >= s) & ~f).sum())
+        f = np.where(lane >= s, f | np.roll(f, s), f)
+        s *= 2
+    return adds
+
+
+def fold_work(m: int, lanes: int = 128) -> tuple:
+    """(IMADs, bytes) of the bucket fold of m rows: two adds a padded row,
+    the cross-lane scan, the carry's log2(depth) doublings a lane, one add a
+    lane and the halving; the rows read once, one point written."""
+    depth = cuda_curve.fold_depth(m, lanes)
+    stages = sum(lanes - s for s in (1 << k for k in range(16))
+                 if s < lanes)
+    adds = 2 * depth * lanes + stages + lanes + lanes - 1
+    dbls = (depth.bit_length() - 1) * lanes
+    return adds * IMAD_ADD + dbls * IMAD_DBL, (m + 1) * PT_BYTES
+
+
+def scan_operands(rng, dev, depth: int, lanes: int, heads: np.ndarray):
+    """Weak-limb points [depth, 80, lanes] with the identity, the base and
+    the 8-torsion points among them, and the head flags [depth, 1, lanes]
+    of `heads` (in sorted order: element (j, l) is sorted element l * depth
+    + j)."""
+    n = depth * lanes
+    rows = rng.integers(0, F.BOUND + 1, size=(n, 4 * F.L), dtype=np.int32)
+    edge = edge_points()
+    at = rng.choice(n, size=min(n, len(edge)), replace=False)
+    rows[at] = edge[:len(at)]
+    pt = rows.reshape(lanes, depth, 4 * F.L).transpose(1, 2, 0)
+    ht = heads.reshape(lanes, depth).T[:, None, :].astype(np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(pt)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(ht)).to(dev))
+
+
+def sorted_heads(rng, n: int, values: int) -> np.ndarray:
+    """The run starts of n sorted random digits below `values`."""
+    d = np.sort(rng.integers(0, values, size=n))
+    return np.concatenate([[True], d[1:] != d[:-1]])
+
+
 def kernel_cases(rng, dev):
-    """name -> list of (label, kernel call, plain call, IMADs, bytes); the
-    last case of each kernel is the one its JSON record reports."""
+    """name -> list of (label, kernel call, plain call, IMADs, bytes[,
+    library call]); the last case of each kernel is the one its JSON record
+    reports."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -335,24 +435,86 @@ def kernel_cases(rng, dev):
              lambda dg=dg, w=w, th=threads, sl=slices:
                  PP.bucket_accum_plain(pre, dg, w, th, sl),
              imads, nbytes))
+
+    depth, lanes = 4, 8
+    starts = np.zeros(depth * lanes, bool)
+    starts[::depth] = True
+    starts[depth] = False                       # lane 1 continues lane 0
+    patterns = [("all heads", depth, lanes, np.ones(depth * lanes, bool)),
+                ("no heads", depth, lanes, np.zeros(depth * lanes, bool)),
+                ("heads at lane starts but one", depth, lanes, starts)]
+    big_starts = np.zeros(16 * 1024, bool)
+    big_starts[::16] = True
+    big_starts[16 * 7] = False
+    patterns.append(("16x1024 heads at lane starts but one", 16, 1024,
+                     big_starts))
+    patterns.append(("64x1024 runs of ~4096", 64, 1024,
+                     sorted_heads(rng, 1 << 16, 16)))
+    patterns += [(f"{d}x{ln} w={v.bit_length() - 1}", d, ln,
+                  sorted_heads(rng, d * ln, v)) for d, ln, v in SCAN_SHAPES]
+    for label, d, ln, heads in patterns:
+        pt, ht = scan_operands(rng, dev, d, ln, heads)
+        cases["ge_seg_scan"].append(
+            (label, lambda pt=pt, ht=ht: cuda_curve.seg_scan(pt, ht),
+             lambda pt=pt, ht=ht: PP.seg_scan_plain(pt, ht),
+             seg_scan_adds(heads, d, ln) * IMAD_ADD,
+             d * ln * (2 * PT_BYTES + 4) + ln * PT_BYTES))
+    for m in FOLD_ROWS:
+        rows = rng.integers(0, F.BOUND + 1, size=(m, 4 * F.L),
+                            dtype=np.int32)
+        edge = edge_points()[:min(m, 10)]                # identity, B, tor
+        rows[rng.choice(m, size=len(edge), replace=False)] = edge
+        body = t(rows)
+        cases["ge_bucket_fold"].append(
+            (m, lambda b=body: cuda_curve.bucket_fold(b),
+             lambda b=body: PP.bucket_fold_plain(b), *fold_work(m)))
+    nblk = SORT_KEYS // SO.BLOCK
+    for label, radix, keys in (
+            ("radix 128, all equal", 128, np.full(SORT_KEYS, 127)),
+            ("radix 64, two values", 64,
+             rng.choice([3, 40], size=SORT_KEYS)),
+            ("radix 64", 64, rng.integers(0, 64, size=SORT_KEYS)),
+            ("radix 128", 128, rng.integers(0, 128, size=SORT_KEYS))):
+        kb = t(keys.astype(np.int32).reshape(nblk, SO.SUB, SO.LN))
+        base = SO.hist_plain(kb, radix).reshape(-1)
+        base = (torch.cumsum(base, 0) - base).to(torch.int32).reshape(
+            radix, SO.SUB, SO.LN)
+        flat = kb.permute(1, 2, 0).reshape(-1)          # traversal order
+        table = radix * SO.BLOCK * 4
+        label = f"{SORT_KEYS} {label}"
+        cases["sort_hist"].append(
+            (label, lambda kb=kb, r=radix: cuda_sort.hist(kb, r),
+             lambda kb=kb, r=radix: SO.hist_plain(kb, r),
+             0, SORT_KEYS * 4 + table,
+             lambda f=flat: torch.argsort(f, stable=True)))
+        cases["sort_rank"].append(
+            (label, lambda kb=kb, b=base, r=radix: cuda_sort.rank(kb, b, r),
+             lambda kb=kb, b=base, r=radix: SO.rank_plain(kb, b, r),
+             0, 2 * SORT_KEYS * 4 + table,
+             lambda f=flat: torch.argsort(f, stable=True)))
     return cases
 
 
 def as_tensor(out) -> torch.Tensor:
     """A kernel's or twin's result as one tensor: points (a GE or the
-    wrappers' (x, y, z, t) tuple) as [n, 80] rows."""
-    return C.flatten(out) if isinstance(out, tuple) else out
+    wrappers' (x, y, z, t) tuple) as [n, 80] rows; the scan's (values,
+    carries) pair flattened and joined."""
+    if isinstance(out, tuple) and len(out) == 4:
+        return C.flatten(out)
+    if isinstance(out, tuple):
+        return torch.cat([o.reshape(-1) for o in out])
+    return out
 
 
 def check_kernels(dev, rate) -> dict:
     """Every kernel equal to its twin, limb for limb, in every case; returns
-    per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by}, the times
-    and the bound of its last case (the only one timed)."""
+    per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms},
+    the times and the bound of its last case (the only one timed)."""
     rng = np.random.default_rng(SEED)
     results = {}
     for name, cases in kernel_cases(rng, dev).items():
         worst = 0
-        for i, (label, kern, plain, imads, nbytes) in enumerate(cases):
+        for i, (label, kern, plain, imads, nbytes, *lib) in enumerate(cases):
             got = as_tensor(kern())
             torch.cuda.synchronize()
             want = as_tensor(plain())
@@ -368,12 +530,14 @@ def check_kernels(dev, rate) -> dict:
             ms = cuda_median_ms(kern)
             plain_ms = cuda_median_ms(plain, reps=1 if slow else 3)
             bound_ms, bound_by = bound(imads, nbytes, rate)
+            library_ms = cuda_median_ms(lib[0]) if lib else None
             log(f"kernel {name:15s} n={label}: equal to plain, {ms:.4f} ms "
                 f"vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"({bound_by})" + (f", library {library_ms:.4f} ms"
+                                   if lib else ""))
             results[name] = {"max_abs_err": worst, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by}
+                             "bound_by": bound_by, "library_ms": library_ms}
     # both ladders and the tile sum on real points against the oracle
     pts = [oracle.hash_to_point(b"smoke", i) for i in range(4)]
     scs = [1, 7, oracle.ELL - 1, 0x1234567 << 200]
@@ -523,7 +687,8 @@ def native_msm(points: C.GE, ks, n: int):
 
 def check_msm(points, scalars, ks, rate):
     """msm_auto at each size equal to the exact result; returns the
-    per-size wall medians (s) and the window sweep."""
+    per-size wall medians (s), the window sweep and the native library's
+    2^16 result (None if it did not finish)."""
     wall = {}
     for n in MSM_SIZES:
         p, s = head(points, scalars, n)
@@ -565,7 +730,58 @@ def check_msm(points, scalars, ks, rate):
                 sweep[(n, w, threads, slices)] = ms
                 log(f"[sweep] n={n} w={w} threads={threads} slices={slices}: "
                     f"kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, {by})")
-    return wall, sweep
+    return wall, sweep, out
+
+
+def check_msm_scan(points, scalars, ks, native_out):
+    """The sort-plus-scan route (accumulator off): msm_auto at each of
+    SCAN_MSM_SIZES and msm_pippenger at 2^16 under MSM_PALLAS_SORT equal
+    to the exact result (and at 2^16 to the native MSM); returns label ->
+    (points, wall median in s)."""
+    wall = {}
+    n16 = SCAN_MSM_SIZES[0]
+    runs = [(f"msm_auto n={n}, accumulator off", n,
+             lambda p, s: accum_off(lambda: M.msm_auto(p, s)))
+            for n in SCAN_MSM_SIZES]
+    runs.append((f"msm_pippenger n={n16} w={config.msm_window_for(n16)}, "
+                 "MSM_PALLAS_SORT", n16, pallas_sort_pippenger))
+    for label, n, fn in runs:
+        p, s = head(points, scalars, n)
+        got = to_compressed(fn(p, s))
+        if got != expected_bytes(ks, n):
+            raise AssertionError(f"{label} != (sum i s_i) B")
+        if n == NATIVE_MSM_SIZE and native_out is not None \
+                and got != native_out:
+            raise AssertionError(f"{label} != the native MSM")
+        secs = wall_median_s(lambda p=p, s=s, fn=fn: fn(p, s), 3)
+        wall[label] = (n, secs)
+        log(f"[msm] {label}: equal to (sum (i+1) s_i mod l) B"
+            + (" and to the native MSM" if n == NATIVE_MSM_SIZE
+               and native_out is not None else "")
+            + f"; median {secs * 1e3:.2f} ms = {n / secs:.0f} points/s")
+    p, s = head(points, scalars, n16)
+    w = config.msm_window_for(n16)
+    d = PP.extract_digits(s, w)[0].contiguous()
+    order = SO.grouping_order(d, w, config.MSM_PALLAS_SORT_BITS)
+    if not torch.equal(order.long(), torch.argsort(d, stable=True)):
+        raise AssertionError("grouping_order != a stable argsort")
+    pair_ms = cuda_median_ms(lambda: SO.grouping_order(
+        d, w, config.MSM_PALLAS_SORT_BITS))
+    arg_ms = cuda_median_ms(lambda: torch.argsort(d, stable=True))
+    log(f"[sort] one window's digits at {n16}, w={w}: grouping_order "
+        f"({len(SO._plan_passes(w, config.MSM_PALLAS_SORT_BITS))} passes of "
+        f"sort_hist + sort_rank) {pair_ms:.4f} ms, equal to torch.argsort"
+        f"(stable=True) {arg_ms:.4f} ms")
+    return wall
+
+
+def pallas_sort_pippenger(p, s):
+    """msm_pippenger at msm_window_for(n) bits with MSM_PALLAS_SORT on."""
+    config.MSM_PALLAS_SORT = True
+    try:
+        return PP.msm_pippenger(p, s, w=config.msm_window_for(s.shape[0]))
+    finally:
+        config.MSM_PALLAS_SORT = False
 
 
 # --- 7. prove -----------------------------------------------------------------
@@ -768,14 +984,20 @@ def run(dev, card: str, rate: float) -> dict:
     proofs = check_single(gens, rng)
     batch = batch_proofs(rng, BATCH)
     check_batch(gens, batch)
-    big = batch_proofs(rng, max(BIG_BATCHES))
+    big = batch_proofs(rng, SCAN_BATCH)
     for b in BIG_BATCHES:
         check_batch(gens, big[:b])
     log(f"[time] verdicts checked at {time.perf_counter() - t_start:.0f} s")
+    accum_off(lambda: check_batch(gens, big))
+    log(f"[time] batch of {SCAN_BATCH} (accumulator off) checked at "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     points, scalars, ks = bench_inputs(max(MSM_SIZES), dev)
-    msm_wall, sweep = check_msm(points, scalars, ks, rate)
+    msm_wall, sweep, native_out = check_msm(points, scalars, ks, rate)
     log(f"[time] msm checked at {time.perf_counter() - t_start:.0f} s")
+    scan_wall = check_msm_scan(points, scalars, ks, native_out)
+    log(f"[time] sort-plus-scan msm checked at "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     try:
         prove_counts = check_prove(gens, dev, proofs[0])
@@ -787,23 +1009,43 @@ def run(dev, card: str, rate: float) -> dict:
     verify_kernels = VERIFY_KERNELS + ["ge_ladder_win"]
     accum_kernels = ["fe_mul", "fe_sq", "fe_pow2523", "fe_invert",
                      "ge_double", "ge_bucket_accum"]
+    # (label, path, kernels that must launch, kernels that must not)
+    other = ["ge_ladder_bin"]
     paths = [
-        ("one verify", lambda: fused.verify(proofs[0], gens), verify_kernels),
+        ("one verify", lambda: fused.verify(proofs[0], gens), verify_kernels,
+         other),
         (f"one merged batch of {BATCH}",
-         lambda: fused.batch_verify(batch, gens), verify_kernels),
+         lambda: fused.batch_verify(batch, gens), verify_kernels, other),
     ]
     for b in BIG_BATCHES:
         paths.append((f"one merged batch of {b}",
                       lambda b=b: fused.batch_verify(big[:b], gens),
-                      accum_kernels))
+                      accum_kernels, other))
     for n in MSM_SIZES:
         p, s = head(points, scalars, n)
         paths.append((f"msm_auto at {n}",
                       lambda p=p, s=s, n=n: to_compressed(M.msm_auto(p, s))
-                      == expected_bytes(ks, n), msm_route_kernels(n)))
+                      == expected_bytes(ks, n), msm_route_kernels(n), other))
+    scan_kernels = ["ge_seg_scan", "ge_bucket_fold", "ge_double", "ge_add"]
+    not_accum = other + ["ge_bucket_accum"]
+    for n in SCAN_MSM_SIZES:
+        p, s = head(points, scalars, n)
+        paths.append((f"msm_auto at {n}, accumulator off",
+                      lambda p=p, s=s, n=n: to_compressed(accum_off(
+                          lambda: M.msm_auto(p, s))) == expected_bytes(ks, n),
+                      scan_kernels, not_accum))
+    n16 = SCAN_MSM_SIZES[0]
+    p, s = head(points, scalars, n16)
+    paths.append((f"msm_pippenger at {n16}, MSM_PALLAS_SORT",
+                  lambda p=p, s=s: to_compressed(pallas_sort_pippenger(p, s))
+                  == expected_bytes(ks, n16),
+                  scan_kernels + ["sort_hist", "sort_rank"], not_accum))
+    paths.append((f"one merged batch of {SCAN_BATCH}, accumulator off",
+                  lambda: accum_off(lambda: fused.batch_verify(big, gens)),
+                  VERIFY_KERNELS + ["ge_seg_scan", "ge_bucket_fold"],
+                  not_accum))
     launches = {k: 0 for k in counts()}
-    for got in prove_counts + [counted(label, fn, need, ["ge_ladder_bin"])
-                               for label, fn, need in paths]:
+    for got in prove_counts + [counted(*path) for path in paths]:
         for k, v in got.items():
             launches[k] += v
     missing = [name for name, *_ in KERNELS if launches[name] == 0]
@@ -819,9 +1061,17 @@ def run(dev, card: str, rate: float) -> dict:
         s = wall_median_s(lambda b=b: fused.batch_verify(big[:b], gens), 3)
         log(f"[{card}] merged batch verify B={b} n={N_BITS}: median "
             f"{s * 1e3:.1f} ms = {s * 1e3 / b:.2f} ms/proof")
+    s = wall_median_s(lambda: accum_off(lambda: fused.batch_verify(
+        big, gens)), 3)
+    log(f"[{card}] merged batch verify B={SCAN_BATCH} n={N_BITS}, "
+        f"accumulator off: median {s * 1e3:.1f} ms = "
+        f"{s * 1e3 / SCAN_BATCH:.2f} ms/proof")
     for n, s in msm_wall.items():
         log(f"[{card}] msm_auto n={n}: median {s * 1e3:.2f} ms = "
             f"{n / s:.0f} points/s")
+    for label, (n, s) in scan_wall.items():
+        log(f"[{card}] {label}: median {s * 1e3:.2f} ms = {n / s:.0f} "
+            "points/s")
     for n in SWEEP_SIZES:
         runs = {k[1:]: v for k, v in sweep.items() if k[0] == n}
         best = min(runs, key=runs.get)
@@ -845,10 +1095,13 @@ def run(dev, card: str, rate: float) -> dict:
                 f"(LADDER_WINDOW={window}) accepted by the native verifier")
     finally:
         config.LADDER_WINDOW = 4
+    p16, s16 = head(points, scalars, SCAN_MSM_SIZES[0])
     for label, fn in (
             ("one verify", lambda: fused.verify(proofs[0], gens)),
             ("one prove", lambda: fused.prove(prove_value, prove_gamma,
-                                              N_BITS, gens))):
+                                              N_BITS, gens)),
+            (f"msm_auto at {SCAN_MSM_SIZES[0]}, accumulator off",
+             lambda: accum_off(lambda: M.msm_auto(p16, s16)))):
         t0 = time.perf_counter()
         n_launch, dev_events, dev_ms, top = profile_call(fn)
         log(f"[time] profiled {label} in {time.perf_counter() - t0:.0f} s")
@@ -871,7 +1124,8 @@ def run(dev, card: str, rate: float) -> dict:
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": None}
+         "bound_by": kern[name]["bound_by"],
+         "library_ms": kern[name]["library_ms"]}
         for name, src, replaces in KERNELS]}
 
 

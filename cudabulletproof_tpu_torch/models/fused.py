@@ -27,11 +27,14 @@ the proofs and concatenates the proof-point rows, so B proofs cost one
 weights (r1, r2) from ``secrets``.
 
 Prover and verifier alike, an MSM is the per-point ladder plus a tree of
-adds below ``config.FUSED_ACCUM_MIN`` bases and the signed-bucket
-accumulator (``ops/pippenger.py``) from that size up, the JAX package's
-routes (``_msm_point`` :177, ``_pippenger_rows`` :124).  At n = 64 a merged
-batch of B proofs has 130 + 17 B bases, so from B = 113 it takes the
-accumulator; the prover's MSMs have at most 2n + 1 = 129 bases.
+adds below ``_fused_msm_min()`` bases and a bucket MSM (``ops/pippenger.py``)
+from that size up, the JAX package's routes (``_msm_point`` :177,
+``_fused_msm_min`` :112, ``_pippenger_rows`` :124): the signed-bucket
+accumulator from ``config.FUSED_ACCUM_MIN`` bases, or with
+``config.MSM_ACCUM_KERNEL`` off the sort-plus-scan ``msm_pippenger`` from
+``config.FUSED_PIPPENGER_MIN``.  At n = 64 a merged batch of B proofs has
+130 + 17 B bases, so from B = 113 it takes the accumulator, or from B = 957
+the sort-plus-scan; the prover's MSMs have at most 2n + 1 = 129 bases.
 """
 from __future__ import annotations
 
@@ -60,30 +63,40 @@ def _unpack_gens(gp: torch.Tensor, n: int):
 
 
 def _fused_msm_min() -> int:
-    """Base count from which a fused MSM takes the accumulator (the JAX
-    package's ``_fused_msm_min`` with its accumulator kernel on)."""
-    return config.FUSED_ACCUM_MIN
+    """Base count from which a fused MSM leaves the ladder for a bucket MSM
+    (the JAX package's ``_fused_msm_min``): ``config.FUSED_ACCUM_MIN`` with
+    the accumulator on, else ``config.FUSED_PIPPENGER_MIN``."""
+    return (config.FUSED_ACCUM_MIN if config.MSM_ACCUM_KERNEL
+            else config.FUSED_PIPPENGER_MIN)
 
 
 def _pippenger_rows(points: C.GE, fl: torch.Tensor) -> C.GE:
-    """B accumulator MSMs: points GE [m] (shared) or [B, m] (per row), fl
+    """B bucket MSMs: points GE [m] (shared) or [B, m] (per row), fl
     [B, m, 20] field-limb scalars -> GE [B].  Each row is padded to a power
-    of two (identity points, zero scalars), so the plan
-    (``config.accum_plan``) is one of a few padded sizes."""
+    of two (identity points, zero scalars); then the accumulator (its plan
+    ``config.accum_plan`` is one of a few padded sizes) or, with
+    ``config.MSM_ACCUM_KERNEL`` off, ``msm_pippenger`` at
+    ``config.msm_window_for`` of the padded size."""
     per_row = points.x.dim() == 3
+    accum = config.MSM_ACCUM_KERNEL
     outs = []
     for b in range(fl.shape[0]):
         row = C.GE(*(c[b] for c in points)) if per_row else points
-        outs.append(pippenger.msm_accum(*M._pad_pow2(row, fl[b])))
+        pts_p, fl_p = M._pad_pow2(row, fl[b])
+        if accum:
+            outs.append(pippenger.msm_accum(pts_p, fl_p))
+        else:
+            outs.append(pippenger.msm_pippenger(
+                pts_p, fl_p, w=config.msm_window_for(fl_p.shape[0])))
     return C.GE(*(torch.stack([o[i] for o in outs]) for i in range(4)))
 
 
 def _msm_point(points: C.GE, sc: torch.Tensor) -> C.GE:
     """One MSM: points GE [m], sc [m, SL] scalar limbs -> one point.
 
-    From ``_fused_msm_min()`` bases the signed-bucket accumulator (the
-    ge_bucket_accum kernel on the card); below it the ladder route,
-    ``curve.scalarmult`` (on the card always its kernel, ge_ladder_win or
+    From ``_fused_msm_min()`` bases a bucket MSM (``_pippenger_rows``: the
+    accumulator, or with it off the sort-plus-scan); below it the ladder
+    route, ``curve.scalarmult`` (on the card always its kernel, ge_ladder_win or
     ge_ladder_bin as ``config.LADDER_WINDOW`` says, which is what the JAX
     package's ``_ladder`` :86 ensures there) and a tree of adds."""
     fl = SC.to_field_limbs(sc)
@@ -104,7 +117,7 @@ def _msm_compressed(points: C.GE, sc: torch.Tensor) -> torch.Tensor:
     [B, m, SL] scalar limbs -> uint8 [B, 32], one batch inversion for the B
     results.  Below ``_fused_msm_min()`` bases the ladder (one
     ``curve.scalarmult`` over [B, m]) and a tree of adds per row; from it
-    the accumulator (``_pippenger_rows``)."""
+    a bucket MSM (``_pippenger_rows``)."""
     fl = SC.to_field_limbs(sc)                       # [B, m, 20]
     if sc.shape[1] >= _fused_msm_min():
         return C.to_bytes_batch(_pippenger_rows(points, fl))

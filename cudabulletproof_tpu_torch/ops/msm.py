@@ -6,10 +6,13 @@
 ``config.MSM_LADDER_MAX`` points the windowed ladder plus the tile reduction
 (the ge_ladder_win and ge_reduce kernels), below
 ``config.MSM_PIPPENGER_MIN`` Straus over the ge_add / ge_double kernels,
-from it the signed-bucket accumulator (``pippenger.msm_accum``), chunked
-above ``config.MSM_ACCUM_CHUNK`` points with the chunk results folded by
-``curve.tree_reduce``.  It runs on the device of its inputs: the kernels on
-CUDA tensors, their plain twins on CPU tensors.
+from it a bucket MSM.  With ``config.MSM_ACCUM_KERNEL`` on (the default)
+that is the signed-bucket accumulator (``pippenger.msm_accum``), chunked
+above ``config.MSM_ACCUM_CHUNK`` points; with it off the sort-plus-scan
+``pippenger.msm_pippenger`` at ``config.msm_window_for(n)`` bits, chunked
+above ``config.MSM_CHUNK`` points at the chunk's window.  Chunk results are
+folded by ``curve.tree_reduce``.  It runs on the device of its inputs: the
+kernels on CUDA tensors, their plain twins on CPU tensors.
 """
 from __future__ import annotations
 
@@ -53,17 +56,10 @@ def msm_windowed(points: C.GE, scalars: torch.Tensor,
     return acc
 
 
-def msm_auto(points: C.GE, scalars: torch.Tensor) -> C.GE:
-    """sum_i scalars[i] * points[i], routed by size.  points: GE [n];
-    scalars: int32 [n, 20] radix-2^13 limbs (< 2^253).  Returns one GE."""
+def _chunked(points: C.GE, scalars: torch.Tensor, ck: int, msm) -> C.GE:
+    """msm over chunks of ck points (the last padded to ck), the chunk
+    results folded by ``curve.tree_reduce``."""
     n = scalars.shape[0]
-    if n <= config.MSM_LADDER_MAX:
-        return C.tree_reduce_tiles(C.scalarmult(points, scalars))
-    if n < config.MSM_PIPPENGER_MIN:
-        return msm_windowed(points, scalars)
-    ck = config.MSM_ACCUM_CHUNK
-    if n <= ck:
-        return pippenger.msm_accum(points, scalars)
     parts = []
     for off in range(0, n, ck):
         end = min(off + ck, n)
@@ -71,9 +67,31 @@ def msm_auto(points: C.GE, scalars: torch.Tensor) -> C.GE:
         s = scalars[off:end]
         if end - off < ck:
             p, s = _pad_pow2(p, s, pad_min=ck)
-        parts.append(pippenger.msm_accum(p, s))
+        parts.append(msm(p, s))
     return C.tree_reduce(C.GE(*(torch.stack([pt[i] for pt in parts])
                                 for i in range(4))))
+
+
+def msm_auto(points: C.GE, scalars: torch.Tensor) -> C.GE:
+    """sum_i scalars[i] * points[i], routed by size (and
+    ``config.MSM_ACCUM_KERNEL``, read at call time).  points: GE [n];
+    scalars: int32 [n, 20] radix-2^13 limbs (< 2^253).  Returns one GE."""
+    n = scalars.shape[0]
+    if n <= config.MSM_LADDER_MAX:
+        return C.tree_reduce_tiles(C.scalarmult(points, scalars))
+    if n < config.MSM_PIPPENGER_MIN:
+        return msm_windowed(points, scalars)
+    if config.MSM_ACCUM_KERNEL:
+        if n <= config.MSM_ACCUM_CHUNK:
+            return pippenger.msm_accum(points, scalars)
+        return _chunked(points, scalars, config.MSM_ACCUM_CHUNK,
+                        pippenger.msm_accum)
+    if n <= config.MSM_CHUNK:
+        return pippenger.msm_pippenger(points, scalars,
+                                       w=config.msm_window_for(n))
+    w = config.msm_window_for(config.MSM_CHUNK)
+    return _chunked(points, scalars, config.MSM_CHUNK,
+                    lambda p, s: pippenger.msm_pippenger(p, s, w=w))
 
 
 def concat_ge(*parts: C.GE) -> C.GE:

@@ -47,6 +47,14 @@ SIGNATURES = {
     "bp_ge_reduce": [_P, _P, _N, _P],           # p, out, n, stream
     # pre, dg, part, out, n, nw, w, threads, slices, stream
     "bp_ge_bucket_accum": [_P, _P, _P, _P, _N, _N, _N, _N, _N, _P],
+    # pt, ht, out, carry, buf, flags, depth, lanes, stream
+    "bp_ge_seg_scan": [_P, _P, _P, _P, _P, _P, _N, _N, _P],
+    # body, buf, wacc, out, m, depth, lanes, stream
+    "bp_ge_bucket_fold": [_P, _P, _P, _P, _N, _N, _N, _P],
+    # keys, counts, nblk, radix, stream
+    "bp_sort_hist": [_P, _P, _N, _N, _P],
+    # keys, base, cnt, rank, nblk, radix, stream
+    "bp_sort_rank": [_P, _P, _P, _P, _N, _N, _P],
 }
 
 _lib = None

@@ -166,7 +166,8 @@ def test_build_plan():
     and bound with pointer-sized ctypes arguments."""
     import ctypes
     names = sorted(p.name for p in build.sources())
-    assert names == ["accum_kernels.cu", "curve_kernels.cu", "field_kernels.cu"]
+    assert names == ["accum_kernels.cu", "curve_kernels.cu", "field_kernels.cu",
+                     "scan_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path().parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "cudabulletproof_tpu_torch")

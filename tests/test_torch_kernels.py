@@ -18,9 +18,10 @@ import make_prove_golden as golden
 from cudabulletproof_tpu_torch import config
 from cudabulletproof_tpu_torch.models import fused as TFU
 from cudabulletproof_tpu_torch.models.generators import get_generators
-from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
+from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field, cuda_sort,
                                            curve as TC, field as TF,
-                                           msm as TM, pippenger as TP)
+                                           msm as TM, pippenger as TP,
+                                           sort as TSO)
 from cudabulletproof_tpu_torch.utils import oracle
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
 
@@ -247,7 +248,8 @@ def test_launch_counts_and_refusals(dev):
     cuda_curve.bucket_accum(pre, dg, 4, 32, 1)
     assert {k: cuda_curve.launches[k] - before[k] for k in before} == {
         "ge_add": 1, "ge_double": 1, "ge_ladder_win": 1, "ge_ladder_bin": 1,
-        "ge_reduce": 1, "ge_bucket_accum": 1}
+        "ge_reduce": 1, "ge_bucket_accum": 1, "ge_seg_scan": 0,
+        "ge_bucket_fold": 0}
     s = TF.from_ints([1, 2], dev)
     with pytest.raises(ValueError):
         cuda_curve.ladder_bin(TC.identity((2,)), s)       # points on the CPU
@@ -267,3 +269,189 @@ def test_launch_counts_and_refusals(dev):
         cuda_curve.bucket_accum(pre, dg, 4, 48, 1)        # not a power of 2
     with pytest.raises(ValueError):
         cuda_curve.bucket_accum(pre, dg[:, :1], 4, 32, 1)  # shapes differ
+
+
+def _scan_operands(rng, depth, lanes, dev, heads=None, buckets=None):
+    """Weak-limb points [depth, 80, lanes] with the identity, the base and
+    the 8-torsion points among them, and head flags [depth, 1, lanes]:
+    `heads` [depth * lanes] in sorted order if given, else the run starts of
+    sorted random digits below `buckets` (runs that straddle lanes), element
+    (j, l) the sorted element l * depth + j."""
+    n = depth * lanes
+    rows = rng.integers(0, TF.BOUND + 1, size=(n, 80), dtype=np.int32)
+    tor = [oracle.IDENTITY, oracle.BASE] + oracle.small_order_points()
+    rows[:min(n, len(tor))] = TC.flatten(TC.from_oracle(tor[:n])).numpy()
+    rows = rows[rng.permutation(n)]
+    if heads is None:
+        d = np.sort(rng.integers(0, buckets, size=n))
+        heads = np.concatenate([[True], d[1:] != d[:-1]])
+    pt = rows.reshape(lanes, depth, 80).transpose(1, 2, 0)
+    ht = np.asarray(heads).reshape(lanes, depth).T[:, None, :]
+    return (torch.from_numpy(np.ascontiguousarray(pt)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(ht, dtype=np.int32)).to(dev))
+
+
+def _head_patterns(depth, lanes):
+    """All heads; no heads; a head at every lane start but lane 1's."""
+    n = depth * lanes
+    starts = np.zeros(n, bool)
+    starts[::depth] = True
+    starts[depth] = False
+    return {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+            "starts": starts}
+
+
+@pytest.mark.parametrize("depth,lanes,buckets", [
+    (64, 1024, 1 << 13),          # one window at 2^16, w = 13
+    (64, 1024, 16),               # runs of ~4096: carries across 64 lanes
+    (32, 1024, 1 << 11),          # the B = 1024 batch's MSM, w = 11
+    (4, 4, 5), (8, 16, 40), (3, 5, 4)])
+def test_seg_scan_kernel_equals_twin(dev, depth, lanes, buckets):
+    rng = np.random.default_rng(depth * lanes + buckets)
+    pt, ht = _scan_operands(rng, depth, lanes, dev, buckets=buckets)
+    got, want = cuda_curve.seg_scan(pt, ht), TP.seg_scan_plain(pt, ht)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("pattern", ["all", "none", "starts"])
+@pytest.mark.parametrize("depth,lanes", [(4, 8), (16, 1024)])
+def test_seg_scan_kernel_head_patterns(dev, depth, lanes, pattern):
+    rng = np.random.default_rng(lanes)
+    pt, ht = _scan_operands(rng, depth, lanes, dev,
+                            heads=_head_patterns(depth, lanes)[pattern])
+    got, want = cuda_curve.seg_scan(pt, ht), TP.seg_scan_plain(pt, ht)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,lanes", [(8191, 128), (2047, 128), (100, 128),
+                                     (128, 128), (1, 128), (15, 4), (23, 8)])
+def test_bucket_fold_kernel_equals_twin(dev, m, lanes):
+    """Weak-limb rows with the identity, the base and the 8-torsion points
+    among them: w = 13 and 11 tables, fewer rows than lanes, as many."""
+    rng = np.random.default_rng(m)
+    rows = _rand(rng, (m, 80), dev)
+    tor = [oracle.IDENTITY, oracle.BASE] + oracle.small_order_points()
+    rows[-min(m, len(tor)):] = TC.flatten(TC.from_oracle(tor[:m], dev))
+    got = cuda_curve.bucket_fold(rows, lanes)
+    assert torch.equal(got, TP.bucket_fold_plain(rows, lanes))
+
+
+@pytest.mark.parametrize("keys", ["random", "equal", "two"])
+@pytest.mark.parametrize("radix", [128, 64])
+def test_sort_kernels_equal_twins(dev, radix, keys):
+    """One LSD pass at 2^16 keys (the 7 + 6 bit passes of w = 13): random
+    keys, all equal, two values."""
+    rng = np.random.default_rng(radix)
+    k = {"random": rng.integers(0, radix, size=1 << 16),
+         "equal": np.full(1 << 16, radix - 1),
+         "two": rng.choice([3, radix // 2], size=1 << 16)}[keys]
+    kb = torch.from_numpy(k.astype(np.int32).reshape(64, 8, 128)).to(dev)
+    counts = cuda_sort.hist(kb, radix)
+    assert torch.equal(counts, TSO.hist_plain(kb, radix))
+    flat = counts.reshape(-1)
+    base = (torch.cumsum(flat, 0) - flat).reshape(radix, 8, 128).int()
+    got = cuda_sort.rank(kb, base, radix)
+    assert torch.equal(got, TSO.rank_plain(kb, base, radix))
+    assert torch.equal(got.reshape(-1).sort()[0],
+                       torch.arange(1 << 16, device=dev, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,w,bits", [(1 << 16, 13, 7), (4096, 5, 4)])
+def test_grouping_order_on_card_is_stable_argsort(dev, n, w, bits):
+    rng = np.random.default_rng(n + w)
+    d = torch.from_numpy(rng.integers(0, 1 << w, size=n,
+                                      dtype=np.int32)).to(dev)
+    before = dict(cuda_sort.launches)
+    got = TSO.grouping_order(d, w, bits)
+    assert torch.equal(got.long(), torch.argsort(d, stable=True))
+    passes = -(-w // bits)
+    assert {k: cuda_sort.launches[k] - before[k] for k in before} == {
+        "sort_hist": passes, "sort_rank": passes}
+
+
+@pytest.mark.parametrize("pallas_sort", [False, True])
+def test_msm_pippenger_on_card_matches_oracle(dev, monkeypatch, pallas_sort):
+    """2048 bases (64 distinct points) at w = 8 with 256 lanes (the chunked
+    scan, runs across lanes) and 40 at w = 5 (the unchunked scan): equal to
+    the oracle sum, through ge_seg_scan and ge_bucket_fold (and the sort
+    kernels under MSM_PALLAS_SORT where n is a multiple of 1024)."""
+    monkeypatch.setattr(config, "MSM_PALLAS_SORT", pallas_sort)
+    monkeypatch.setattr(config, "MSM_SCAN_LANES", 256)
+    pts = [oracle.hash_to_point(b"kpip", i) for i in range(64)]
+    rng = np.random.default_rng(11)
+    for n, w in ((2048, 8), (40, 5)):
+        sc = [0, 1, oracle.ELL - 1] + [
+            int.from_bytes(rng.bytes(32), "little") % oracle.ELL
+            for _ in range(n - 3)]
+        want = oracle.IDENTITY
+        for i, k in enumerate(sc):
+            want = want + k * pts[i % 64]
+        p = TC.from_oracle([pts[i % 64] for i in range(n)], dev)
+        before = {**cuda_curve.launches, **cuda_sort.launches}
+        got = TP.msm_pippenger(p, TF.from_ints(sc, dev), w=w)
+        assert TC.to_oracle(got) == [want]
+        after = {**cuda_curve.launches, **cuda_sort.launches}
+        used = {k for k in after if after[k] > before[k]}
+        chunked = n % 256 == 0
+        assert ("ge_seg_scan" in used) == chunked
+        assert "ge_bucket_fold" in used and "ge_bucket_accum" not in used
+        assert ("sort_hist" in used) == (pallas_sort and n % 1024 == 0)
+
+
+def test_msm_auto_accum_off_on_card(dev, monkeypatch):
+    """msm_auto with the accumulator off and the thresholds lowered: one
+    msm_pippenger at 24 bases, three chunks of 16 at 40; the oracle sum."""
+    monkeypatch.setattr(config, "MSM_ACCUM_KERNEL", False)
+    monkeypatch.setattr(config, "MSM_LADDER_MAX", 4)
+    monkeypatch.setattr(config, "MSM_PIPPENGER_MIN", 8)
+    monkeypatch.setattr(config, "MSM_CHUNK", 32)
+    monkeypatch.setattr(config, "MSM_SCAN_LANES", 8)
+    pts = [oracle.hash_to_point(b"kauto", i) for i in range(40)]
+    rng = np.random.default_rng(5)
+    sc = [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
+          for _ in range(40)]
+    for n in (24, 40):
+        want = oracle.IDENTITY
+        for p, k in zip(pts[:n], sc[:n]):
+            want = want + k * p
+        before = dict(cuda_curve.launches)
+        got = TM.msm_auto(TC.from_oracle(pts[:n], dev),
+                          TF.from_ints(sc[:n], dev))
+        assert TC.to_oracle(got) == [want]
+        assert cuda_curve.launches["ge_bucket_accum"] == \
+            before["ge_bucket_accum"]
+        assert cuda_curve.launches["ge_bucket_fold"] > \
+            before["ge_bucket_fold"]
+
+
+def test_scan_sort_launch_counts_and_refusals(dev):
+    """One launch counted per wrapper call; wrong devices, dtypes and
+    shapes refused before any launch."""
+    before = {**cuda_curve.launches, **cuda_sort.launches}
+    pt = torch.zeros((2, 80, 4), dtype=torch.int32, device=dev)
+    ht = torch.ones((2, 1, 4), dtype=torch.int32, device=dev)
+    cuda_curve.seg_scan(pt, ht)
+    cuda_curve.bucket_fold(torch.zeros((5, 80), dtype=torch.int32,
+                                       device=dev), 4)
+    keys = torch.zeros((1, 8, 128), dtype=torch.int32, device=dev)
+    counts = cuda_sort.hist(keys, 4)
+    cuda_sort.rank(keys, counts, 4)
+    after = {**cuda_curve.launches, **cuda_sort.launches}
+    assert {k: after[k] - before[k] for k in before if after[k] != before[k]
+            } == {"ge_seg_scan": 1, "ge_bucket_fold": 1, "sort_hist": 1,
+                  "sort_rank": 1}
+    with pytest.raises(ValueError):
+        cuda_curve.seg_scan(pt.cpu(), ht.cpu())
+    with pytest.raises(TypeError):
+        cuda_curve.seg_scan(pt.long(), ht)
+    with pytest.raises(ValueError):
+        cuda_curve.seg_scan(pt, ht[:1])
+    with pytest.raises(ValueError):
+        cuda_curve.bucket_fold(pt[0].T.contiguous(), 3)     # 3 lanes
+    with pytest.raises(ValueError):
+        cuda_sort.hist(keys, 257)
+    with pytest.raises(ValueError):
+        cuda_sort.rank(keys, counts[:2], 4)
+    with pytest.raises(ValueError):
+        cuda_sort.hist(keys.reshape(2, 4, 128), 4)
+    assert {**cuda_curve.launches, **cuda_sort.launches} == after

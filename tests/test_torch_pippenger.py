@@ -1,0 +1,308 @@
+"""The port's sort-plus-scan MSM (``ops/pippenger.py::msm_pippenger``, its
+segmented scan and bucket fold, ``ops/sort.py``, the ``MSM_ACCUM_KERNEL =
+False`` routes of ``msm.msm_auto`` and ``fused._pippenger_rows``) against
+the JAX package and the python-int oracle, on the CPU, where the port runs
+its kernels' plain twins.
+
+The JAX package's outputs are committed fixtures,
+``tests/golden/pippenger.npz``, written by ``tests/make_pippenger_golden.py``
+(its Pallas kernels in interpret mode compile for minutes here).  Held
+against them:
+
+* limb for limb, where the port mirrors the op order: ``seg_scan_plain``
+  against ``pallas_curve.seg_scan`` (values and carries, runs straddling
+  lanes) and ``bucket_fold_plain`` against ``pallas_curve.bucket_fold``;
+* integer for integer: ``sort.grouping_order`` against
+  ``pallas_sort.grouping_order``;
+* as compressed bytes: ``msm_pippenger`` against the JAX package's, through
+  the Pallas kernels (n = 32, 8 lanes) and through its XLA scan (n = 4096).
+
+Against the oracle sum: ``msm_pippenger`` on runs that straddle lanes and
+on one run over every lane, ``msm_auto`` with the accumulator off, and
+merged ``fused.batch_verify`` through the sort-plus-scan route.  The one
+``slow`` test rebuilds the fixtures live and compares.
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import make_pippenger_golden as golden
+from cudabulletproof_tpu import config as jax_config
+from cudabulletproof_tpu_torch import config
+from cudabulletproof_tpu_torch.models import fused as TFU
+from cudabulletproof_tpu_torch.models.generators import get_generators
+from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_sort, curve as TC,
+                                           field as TF, msm as TM,
+                                           pippenger as TP, sort as TSO)
+from cudabulletproof_tpu_torch.utils import native, oracle
+from cudabulletproof_tpu_torch.utils.serialization import (
+    deserialize_range_proof, serialize_range_proof)
+from jax_release import release_jax_programs  # noqa: F401 (autouse)
+
+ELL = oracle.ELL
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def ref() -> dict:
+    with np.load(golden.GOLDEN) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _oracle_sum(points, scalars):
+    acc = oracle.IDENTITY
+    for p, k in zip(points, scalars):
+        acc = acc + k * p
+    return acc
+
+
+def _compressed(p: TC.GE) -> bytes:
+    return bytes(TC.to_bytes(p).tolist())
+
+
+# --- the twins against the Pallas kernels (fixtures) -------------------------
+@pytest.mark.parametrize("depth,lanes", golden.SCAN_SHAPES)
+def test_seg_scan_twin_matches_pallas(ref, depth, lanes):
+    key = f"scan_{depth}x{lanes}"
+    ht = ref[f"{key}_ht"]
+    heads = ht[:, 0, :].T.reshape(-1)
+    assert heads[0] and not heads.all()
+    assert (~heads.reshape(lanes, depth)[1:, 0]).any()   # a run straddles
+    vals, carry = TP.seg_scan(torch.from_numpy(ref[f"{key}_pt"]),
+                              torch.from_numpy(ht))
+    assert np.array_equal(vals.numpy(), ref[f"{key}_out"])
+    assert np.array_equal(carry.numpy(), ref[f"{key}_carry"])
+
+
+@pytest.mark.parametrize("m,lanes", golden.FOLD_SHAPES)
+def test_bucket_fold_twin_matches_pallas(ref, m, lanes):
+    key = f"fold_{m}x{lanes}"
+    got = TP.bucket_fold(torch.from_numpy(ref[f"{key}_body"]), lanes)
+    assert np.array_equal(got.numpy(), ref[f"{key}_out"])
+
+
+@pytest.mark.parametrize("n,w,bits", [
+    (n, w, b) for n in golden.ORDER_SIZES for w in golden.ORDER_WINDOWS
+    for b in golden.ORDER_BITS])
+def test_grouping_order_matches_jax(ref, n, w, bits):
+    key = f"order_{n}_{w}_{bits}"
+    digits = torch.from_numpy(ref[f"{key}_digits"])
+    got = TSO.grouping_order(digits, w, bits)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), ref[f"{key}_out"])
+    assert torch.equal(got.long(), torch.argsort(digits, stable=True))
+
+
+def test_sort_twins_skewed_and_out_of_range_keys():
+    """All keys equal, two values, and keys outside [0, radix) (uncounted,
+    rank 0, as in the Pallas kernels)."""
+    rng = np.random.default_rng(3)
+    for k in (np.full(2048, 5), rng.choice([0, 9], size=2048),
+              rng.integers(-2, 18, size=2048)):
+        kb = torch.from_numpy(k.astype(np.int32).reshape(2, 8, 128))
+        counts = TSO.hist_plain(kb, 16)
+        valid = (k >= 0) & (k < 16)
+        assert int(counts.sum()) == int(valid.sum())
+        flat = counts.reshape(-1)
+        base = (torch.cumsum(flat, 0) - flat).reshape(16, 8, 128).int()
+        r = TSO.rank_plain(kb, base, 16).reshape(-1).numpy()
+        assert (r[~valid.reshape(-1)] == 0).all()
+        assert sorted(r[valid.reshape(-1)]) == list(range(int(valid.sum())))
+
+
+@pytest.mark.parametrize("n,w,lanes,distinct", golden.MSM_CASES)
+def test_msm_pippenger_matches_jax(ref, monkeypatch, n, w, lanes, distinct):
+    """The JAX package's msm_pippenger result as compressed bytes, and the
+    oracle's."""
+    if lanes is not None:
+        monkeypatch.setattr(config, "MSM_SCAN_LANES", lanes)
+    pts = ref[f"msm{n}_points"]
+    sc = ref[f"msm{n}_scalars"]
+    want = bytes(ref[f"msm{n}_bytes"].tolist())
+    ints = [sum(int(v) << (13 * i) for i, v in enumerate(r)) for r in sc]
+    base = TC.to_oracle(TC.unflatten(torch.from_numpy(pts)))
+    total = [0] * distinct
+    for i, k in enumerate(ints):
+        total[i % distinct] += k
+    assert _oracle_sum(base, total).compress() == want
+    p = TC.unflatten(torch.from_numpy(pts[np.arange(n) % distinct]))
+    assert _compressed(TP.msm_pippenger(p, torch.from_numpy(sc), w=w)) == want
+
+
+# --- the glue against the oracle ---------------------------------------------
+@pytest.mark.parametrize("case", ["straddle", "one_run", "unchunked"])
+def test_msm_pippenger_matches_oracle(monkeypatch, case):
+    """Runs of equal digits that straddle lanes (64 points, 16 lanes of 4,
+    w = 4: ~4 points a bucket); every scalar equal (one run over all the
+    lanes in every window: the carry crosses them all); and the unchunked
+    scan (24 points, not a multiple of the lanes)."""
+    monkeypatch.setattr(config, "MSM_SCAN_LANES", 16)
+    rng = np.random.default_rng(21)
+    n = 24 if case == "unchunked" else 64
+    pts = [oracle.hash_to_point(b"pip", i % 16) for i in range(n)]
+    if case == "one_run":
+        sc = [0x1234567 << 200] * n
+    else:
+        sc = [0, 1, ELL - 1] + [int.from_bytes(rng.bytes(32), "little") % ELL
+                                for _ in range(n - 3)]
+    got = TP.msm_pippenger(TC.from_oracle(pts), TF.from_ints(sc), w=4)
+    assert TC.to_oracle(got) == [_oracle_sum(pts, sc)]
+
+
+def _spy(monkeypatch, mod, name: str) -> list:
+    """Record (points, w or None) of every call of mod.name."""
+    calls = []
+    orig = getattr(mod, name)
+
+    def spy(points, scalars, *args, **kwargs):
+        w = kwargs.get("w", args[0] if args else None)
+        calls.append((scalars.shape[0], w))
+        return orig(points, scalars, *args, **kwargs)
+    monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("n,calls", [(24, [(24, 4)]), (12, [(8, 4)] * 2)])
+def test_msm_auto_accum_off_matches_oracle(monkeypatch, n, calls):
+    """With MSM_ACCUM_KERNEL off and the thresholds lowered: one
+    msm_pippenger at msm_window_for(n) bits up to MSM_CHUNK points, chunks
+    of MSM_CHUNK (the last padded) above; never the accumulator."""
+    monkeypatch.setattr(config, "MSM_ACCUM_KERNEL", False)
+    monkeypatch.setattr(config, "MSM_LADDER_MAX", 4)
+    monkeypatch.setattr(config, "MSM_PIPPENGER_MIN", 8)
+    monkeypatch.setattr(config, "MSM_CHUNK", 8 if n == 12 else 32)
+    monkeypatch.setattr(config, "MSM_SCAN_LANES", 4)
+    pip = _spy(monkeypatch, TP, "msm_pippenger")
+    acc = _spy(monkeypatch, TP, "msm_accum")
+    rng = np.random.default_rng(n)
+    pts = [oracle.hash_to_point(b"auto-off", i) for i in range(n)]
+    sc = [int.from_bytes(rng.bytes(32), "little") % ELL for _ in range(n)]
+    got = TM.msm_auto(TC.from_oracle(pts), TF.from_ints(sc))
+    assert TC.to_oracle(got) == [_oracle_sum(pts, sc)]
+    assert pip == calls and acc == []
+
+
+def test_knobs_read_at_call_time(monkeypatch):
+    """MSM_ACCUM_KERNEL picks msm_auto's bucket MSM and the fused
+    threshold at each call (on by default: the accumulator routes of the
+    port as they were); MSM_PALLAS_SORT picks the grouping at each call."""
+    assert config.MSM_ACCUM_KERNEL is True
+    assert config.MSM_PALLAS_SORT is False
+    assert TFU._fused_msm_min() == config.FUSED_ACCUM_MIN == 2048
+    monkeypatch.setattr(config, "MSM_LADDER_MAX", 4)
+    monkeypatch.setattr(config, "MSM_PIPPENGER_MIN", 8)
+    pip = _spy(monkeypatch, TP, "msm_pippenger")
+    acc = _spy(monkeypatch, TP, "msm_accum")
+    pts = TC.from_oracle([oracle.hash_to_point(b"knob", i) for i in range(8)])
+    sc = TF.from_ints(list(range(1, 9)))
+    want = TC.to_oracle(TM.msm_auto(pts, sc))
+    assert (acc, pip) == ([(8, None)], [])
+    monkeypatch.setattr(config, "MSM_ACCUM_KERNEL", False)
+    assert TFU._fused_msm_min() == config.FUSED_PIPPENGER_MIN == 16384
+    assert TC.to_oracle(TM.msm_auto(pts, sc)) == want
+    assert (acc, pip) == ([(8, None)], [(8, 4)])
+
+    grouped = []
+    orig = TSO.grouping_order
+
+    def spy(digits, w, *args):
+        grouped.append((digits.shape[0], w))
+        return orig(digits, w, *args)
+    monkeypatch.setattr(TSO, "grouping_order", spy)
+    d = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32, size=1024, dtype=np.int32))
+    assert torch.equal(TP._digit_order(d, 5), torch.argsort(d, stable=True))
+    assert grouped == []
+    monkeypatch.setattr(config, "MSM_PALLAS_SORT", True)
+    assert torch.equal(TP._digit_order(d, 5), torch.argsort(d, stable=True))
+    assert grouped == [(1024, 5)]
+    assert torch.equal(TP._digit_order(d[:1000], 5),      # not 1024 | n
+                       torch.argsort(d[:1000], stable=True))
+    assert grouped == [(1024, 5)]
+
+
+def test_window_for_matches_jax():
+    """The scan branch of the JAX package's cost model, an operation
+    count: 9 at 2^12, 11 at 2^14 and 2^15, 13 at 2^16."""
+    assert [config.msm_window_for(1 << k) for k in (12, 14, 15, 16)] == [
+        9, 11, 11, 13]
+    for k in range(4, 21):
+        assert config.msm_window_for(1 << k) == jax_config.msm_window_for(
+            1 << k)
+    assert (config.MSM_CHUNK, config.MSM_SCAN_LANES,
+            config.MSM_PALLAS_SORT_BITS, config.FUSED_PIPPENGER_MIN) == (
+        jax_config.MSM_CHUNK, jax_config.MSM_SCAN_LANES,
+        jax_config.MSM_PALLAS_SORT_BITS, jax_config.FUSED_PIPPENGER_MIN)
+
+
+@pytest.mark.skipif(not native.available(), reason="native library "
+                    "unavailable")
+def test_batch_verify_sort_scan_route(monkeypatch):
+    """A merged batch of two native proofs at n = 4 (28 MSM bases, padded
+    to 32) with the accumulator off and FUSED_PIPPENGER_MIN lowered, so the
+    MSM is msm_pippenger at w = 4 (16 lanes: the chunked scan): honest
+    accepted, one tampered rejected, as the native verifier says."""
+    monkeypatch.setattr(config, "MSM_ACCUM_KERNEL", False)
+    monkeypatch.setattr(config, "FUSED_PIPPENGER_MIN", 16)
+    monkeypatch.setattr(config, "MSM_SCAN_LANES", 16)
+    pip = _spy(monkeypatch, TP, "msm_pippenger")
+    rng = np.random.default_rng(4)
+    proofs = [deserialize_range_proof(native.prove_range(
+        v, int.from_bytes(rng.bytes(32), "little"), 4)) for v in (3, 15)]
+    gens = get_generators(4, device="cpu")
+    weights = [5, 7, 11, 13]
+    assert TFU.batch_verify(proofs, gens, rnd=weights)
+    bad = [proofs[0], dataclasses.replace(proofs[1],
+                                          t_hat=(proofs[1].t_hat + 1) % ELL)]
+    assert not native.verify_range(serialize_range_proof(bad[1]))
+    assert not TFU.batch_verify(bad, gens, rnd=weights)
+    assert pip == [(32, 4)] * 2
+
+
+def test_device_tensors_reach_the_wrappers(monkeypatch):
+    """A tensor that is not on the CPU (``meta`` stands in for CUDA here)
+    goes to the kernel wrapper, which refuses it, never to the twin."""
+    def plain(*_):
+        raise AssertionError("a plain twin was called for a device tensor")
+    for mod, name in ((TP, "seg_scan_plain"), (TP, "bucket_fold_plain"),
+                      (TSO, "hist_plain"), (TSO, "rank_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    before = {**cuda_curve.launches, **cuda_sort.launches}
+    meta = torch.empty((2, 80, 4), dtype=torch.int32, device="meta")
+    keys = torch.empty((1, 8, 128), dtype=torch.int32, device="meta")
+    for call in (lambda: TP.seg_scan(meta, meta[:, :1]),
+                 lambda: TP.bucket_fold(meta[0].T, 4),
+                 lambda: TSO.hist(keys, 4),
+                 lambda: TSO.rank(keys, keys.expand(4, 8, 128), 4)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert {**cuda_curve.launches, **cuda_sort.launches} == before
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        TSO.grouping_order(torch.zeros(1000, dtype=torch.int32), 5)
+
+
+# --- the live comparison with the JAX package (slow) -------------------------
+@pytest.mark.slow
+def test_fixture_matches_live_jax(ref, tmp_path):
+    """Rebuild the fixture with the JAX package (Pallas interpret mode, in
+    a child process) and compare every array with the committed one."""
+    dst = tmp_path / "pippenger.npz"
+    script = TESTS / "make_pippenger_golden.py"
+    out = subprocess.run([sys.executable, str(script), str(dst)], cwd=REPO,
+                         capture_output=True, text=True, timeout=3600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    with np.load(dst) as f:
+        assert sorted(f.files) == sorted(ref)
+        for k in f.files:
+            assert np.array_equal(f[k], ref[k]), k
