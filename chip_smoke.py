@@ -8,10 +8,12 @@ Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once.
-  3. kernels: each of the fourteen kernels against its plain torch twin on
+  3. kernels: each of the sixteen kernels against its plain torch twin on
      the card, on inputs from a fixed numpy seed at the paths' shapes plus
      edge inputs; equality must be exact, limb for limb (tolerance 0:
-     integer arithmetic).  The sort-plus-scan kernels: ge_seg_scan at
+     integer arithmetic).  fe_add / fe_sub at 1, 25 (the edge rows),
+     255, 257 and 10,000 elements (the CLI's microbenchmark size, the one
+     timed; their bound is 240 bytes an element over the HBM rate).  The sort-plus-scan kernels: ge_seg_scan at
      [depth 64, lanes 1024] (one window at 2^16, runs of equal digits that
      straddle lanes) and [32, 1024] (the B = 1024 batch's windows), and
      small shapes with all heads, no heads and a head at every lane start
@@ -54,24 +56,40 @@ Phases, each raising on failure (so the exit code is nonzero):
      the native verifier and by fused.verify, t_hat + 1 rejected by both;
      one verify under the binary ladder, counted, accepted as native
      accepts it.
-  8. the main paths, counted: the launch counters are set to 0 before each
+  8. the CLI (python -m cudabulletproof_tpu_torch) in-process through
+     cli.main, at its default --range-bits 16 and at 64: each must end in
+     {"all_tests": "SUCCESS"} with exit 0.  The host-transcript prover
+     (models/rangeproof.py) at n = 64, fed the randomness of the JAX
+     package's fixture tests/golden/host_prove_n64.npz, must write its blob
+     byte for byte; a proof with fresh randomness must pass
+     rangeproof.verify, verify_deterministic, fused.verify and the native
+     verifier, and a tampered copy must fail all four.
+  9. the main paths, counted: the launch counters are set to 0 before each
      path (one verify; a batch of 16; batches of 128 and 256; the four
      msm_auto sizes; with the accumulator off msm_auto at 2^16 and 2^20,
-     msm_pippenger at 2^16 under MSM_PALLAS_SORT and the batch of 1024; and
-     phase 7's) and read after it; every one of the fourteen kernels must
-     launch on them.  Then wall times (fused.prove under each
-     ladder, median of 3, with fresh randomness: the last proof of each must
-     pass the native verifier) and the torch profiler's view of one verify,
-     one prove and one msm_auto at 2^16 with the accumulator off.
+     msm_pippenger at 2^16 under MSM_PALLAS_SORT and the batch of 1024;
+     phase 7's; the CLI at --range-bits 64) and read after it; every kernel
+     but fe_sub must launch on them (fe_sub has no program path, in the JAX
+     package either: it must launch in phase 3).  Then wall times
+     (fused.prove under each ladder, median of 3, with fresh randomness:
+     the last proof of each must pass the native verifier; the host prover
+     at n = 16 and 64, the host verifiers, fused.verify and the native
+     verifier at n = 64, median of 3; the CLI's microbenchmark) and the
+     torch profiler's view of one verify, one prove, one msm_auto at 2^16
+     with the accumulator off, one host prove and one host verify at
+     n = 64.
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -82,8 +100,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cudabulletproof_tpu_torch import config
-from cudabulletproof_tpu_torch.models import fused
+from cudabulletproof_tpu_torch import cli, config
+from cudabulletproof_tpu_torch.models import fused, rangeproof as RP
 from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field, cuda_sort
 from cudabulletproof_tpu_torch.ops import curve as C, field as F
@@ -131,6 +149,13 @@ SCAN_MSM_SIZES = (1 << 16, 1 << 20)
 SCAN_SHAPES = ((32, 1024, 1 << 11), (64, 1024, 1 << 13))
 FOLD_ROWS = (1, 100, 128, 2047, 8191)
 SORT_KEYS = 1 << 16
+# the field add / sub kernels: element counts, the last the CLI's
+ADD_SHAPES = (1, 255, 257, 10_000)
+# the host-transcript protocol: the JAX package's host prover fixture, the
+# CLI's runs, the host prover's timed sizes
+HOST_GOLDEN = "tests/golden/host_prove_n{}.npz"
+CLI_RUNS = ([], ["--range-bits", str(N_BITS)])
+HOST_PROVE_BITS = (16, N_BITS)
 
 # The card's rates for the bounds: HBM3 at 3.35 TB/s (NVIDIA's H100 SXM data
 # sheet); 64 32-bit integer multiply-adds per clock per SM (CUDA C++
@@ -159,6 +184,10 @@ KERNELS = [
      "cudabulletproof_tpu/ops/pallas_field.py:249"),
     ("fe_invert", "field_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_field.py:241"),
+    ("fe_add", "field_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_field.py:152"),
+    ("fe_sub", "field_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_field.py:156"),
     ("ge_add", "curve_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_curve.py:151"),
     ("ge_double", "curve_kernels.cu",
@@ -180,6 +209,10 @@ KERNELS = [
     ("sort_rank", "scan_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_sort.py:56"),
 ]
+# kernels that no program path launches, in the JAX package either; each
+# must launch in the kernel phase instead
+NO_PATH = {"fe_sub": "none in the JAX package (only its tests call "
+                     "pallas_field.sub)"}
 
 
 def log(*args):
@@ -492,6 +525,20 @@ def kernel_cases(rng, dev):
              lambda kb=kb, b=base, r=radix: SO.rank_plain(kb, b, r),
              0, 2 * SORT_KEYS * 4 + table,
              lambda f=flat: torch.argsort(f, stable=True)))
+    edge = edge_fe()
+    for n in ADD_SHAPES[:1] + (len(edge),) + ADD_SHAPES[1:]:
+        a, b = rand_fe(n), rand_fe(n)
+        k = min(n, len(edge))
+        a[:k] = edge[:k]
+        b[n - k:] = edge[::-1][:k]
+        a, b = t(a), t(b)
+        label = f"{n} (the edge rows)" if n == len(edge) else n
+        for name, kern, plain in (("fe_add", cuda_field.add, F.add3_plain),
+                                  ("fe_sub", cuda_field.sub, F.sub3_plain)):
+            cases[name].append((label,
+                                lambda a=a, b=b, k=kern: k(a, b),
+                                lambda a=a, b=b, p=plain: p(a, b),
+                                0, 3 * n * FE_BYTES))
     return cases
 
 
@@ -876,7 +923,78 @@ def check_prove(gens, dev, verify_proof) -> list:
     return counts_of
 
 
-# --- 8. timing ----------------------------------------------------------------
+# --- 8. the CLI and the host-transcript protocol -------------------------------
+# the kernels the CLI at n = 64 launches: the host prover's ladders, halving
+# adds and compressions; the verifier's decompression, small-order check,
+# ladder MSM with its tile sum and cofactor doublings; the microbenchmark's
+# add, mul and square
+CLI_KERNELS = ["fe_add", "fe_mul", "fe_sq", "fe_pow2523", "fe_invert",
+               "ge_ladder_win", "ge_add", "ge_double", "ge_reduce"]
+
+
+def run_cli(argv) -> list:
+    """``cli.main(argv)`` in this process on the card, its output echoed
+    after it and returned as lines; it must exit 0 and end in
+    {"all_tests": "SUCCESS"}."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"  cli {' '.join(argv) or '(defaults)'} | {ln}")
+    if rc != 0 or not lines or lines[-1] != '{"all_tests": "SUCCESS"}':
+        raise AssertionError(f"the CLI with {argv}: exit {rc}, last line "
+                             f"{lines[-1] if lines else None!r}")
+    return lines
+
+
+def ints(rows) -> list:
+    return [int.from_bytes(bytes(r), "little") for r in np.asarray(rows)]
+
+
+def check_host(gens):
+    """Phase 8: the CLI's two runs; the host prover on the fixture's
+    randomness against the JAX blob; a fresh proof and tampered copies
+    through the four verifiers.  Returns (the fresh proof, the CLI's
+    microbenchmark lines of its last run)."""
+    for argv in CLI_RUNS:
+        lines = run_cli(argv)
+    bench = [ln for ln in lines if ln.startswith("Batch field ")]
+    path = Path(__file__).resolve().parent / HOST_GOLDEN.format(N_BITS)
+    with np.load(path) as f:
+        ref = {k: f[k] for k in f.files}
+    value, blinding = ints(ref["secret"])
+    feed = iter(ints(ref["rand"]))
+    proof = RP.prove(value, blinding, N_BITS, gens, rand=lambda: next(feed))
+    if next(feed, None) is not None:
+        raise AssertionError("the host prover drew fewer scalars than the "
+                             "fixture's")
+    if serialize_range_proof(proof) != ref["blob"].tobytes():
+        raise AssertionError("the host prover's blob != the JAX package's")
+    log(f"host prove n={N_BITS}: the blob equals the JAX package's host "
+        "prover's byte for byte")
+    fresh = RP.prove((1 << N_BITS) - 1, 0x5EED, N_BITS, gens)
+    flipped = bytearray(serialize_range_proof(fresh))
+    flipped[40] ^= 1
+    cases = {"honest": fresh,
+             "t_hat + 1": dataclasses.replace(
+                 fresh, t_hat=(fresh.t_hat + 1) % oracle.ELL),
+             "blob[40] ^ 1": deserialize_range_proof(bytes(flipped))}
+    for label, p in cases.items():
+        got = {"rangeproof.verify": RP.verify(p, gens),
+               "verify_deterministic": RP.verify_deterministic(p, gens),
+               "fused.verify": fused.verify(p, gens),
+               "native.verify_range": native.verify_range(
+                   serialize_range_proof(p))}
+        if set(got.values()) != {label == "honest"}:
+            raise AssertionError(f"host proof '{label}': verdicts {got}")
+        log(f"host proof '{label}': "
+            + ("accepted" if label == "honest" else "rejected")
+            + " by " + ", ".join(got))
+    return fresh, bench
+
+
+# --- 9. timing ----------------------------------------------------------------
 def wall_median_s(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -974,9 +1092,14 @@ def main() -> int:
 
 
 def run(dev, card: str, rate: float) -> dict:
-    """Phases 3 to 7 on `dev`; returns the per-kernel record."""
+    """Phases 3 to 9 on `dev`; returns the per-kernel record."""
     t_start = time.perf_counter()
+    reset_counts()
     kern = check_kernels(dev, rate)
+    phase = counts()
+    unlaunched = [k for k in NO_PATH if phase[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"the kernel phase launched no {unlaunched}")
     log(f"[time] kernels checked at {time.perf_counter() - t_start:.0f} s")
 
     rng = np.random.default_rng(SEED + 1)
@@ -1004,6 +1127,10 @@ def run(dev, card: str, rate: float) -> dict:
     finally:
         config.LADDER_WINDOW = 4
     log(f"[time] prove checked at {time.perf_counter() - t_start:.0f} s")
+    os.environ["BP_PLATFORM"] = "cuda"
+    host_proof, bench = check_host(gens)
+    log(f"[time] CLI and host protocol checked at "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     # the main paths, counted: counters set to 0 before each, read after it
     verify_kernels = VERIFY_KERNELS + ["ge_ladder_win"]
@@ -1044,11 +1171,15 @@ def run(dev, card: str, rate: float) -> dict:
                   lambda: accum_off(lambda: fused.batch_verify(big, gens)),
                   VERIFY_KERNELS + ["ge_seg_scan", "ge_bucket_fold"],
                   not_accum))
+    paths.append((f"the CLI at --range-bits {N_BITS}",
+                  lambda: bool(run_cli(CLI_RUNS[1])), CLI_KERNELS,
+                  other + list(NO_PATH)))
     launches = {k: 0 for k in counts()}
     for got in prove_counts + [counted(*path) for path in paths]:
         for k, v in got.items():
             launches[k] += v
-    missing = [name for name, *_ in KERNELS if launches[name] == 0]
+    missing = [name for name, *_ in KERNELS
+               if launches[name] == 0 and name not in NO_PATH]
     if missing:
         raise AssertionError(f"the main paths launched no {missing}")
 
@@ -1095,13 +1226,35 @@ def run(dev, card: str, rate: float) -> dict:
                 f"(LADDER_WINDOW={window}) accepted by the native verifier")
     finally:
         config.LADDER_WINDOW = 4
+    for n in HOST_PROVE_BITS:
+        g = get_generators(n, dev)
+        s = wall_median_s(lambda g=g, n=n: RP.prove(
+            (1 << n) - 1, prove_gamma, n, g), 3)
+        log(f"[{card}] host prove n={n}: median {s * 1e3:.1f} ms")
+    host_blob = serialize_range_proof(host_proof)
+    for label, fn in (
+            ("host rangeproof.verify", lambda: RP.verify(host_proof, gens)),
+            ("host verify_deterministic",
+             lambda: RP.verify_deterministic(host_proof, gens)),
+            ("fused.verify", lambda: fused.verify(host_proof, gens)),
+            ("native.verify_range (host CPU)",
+             lambda: native.verify_range(host_blob))):
+        s = wall_median_s(fn, 3)
+        log(f"[{card}] {label} n={N_BITS}, one host proof: median "
+            f"{s * 1e3:.2f} ms")
+    for ln in bench:
+        log(f"[{card}] CLI microbenchmark (10,000 elements): {ln}")
     p16, s16 = head(points, scalars, SCAN_MSM_SIZES[0])
     for label, fn in (
             ("one verify", lambda: fused.verify(proofs[0], gens)),
             ("one prove", lambda: fused.prove(prove_value, prove_gamma,
                                               N_BITS, gens)),
             (f"msm_auto at {SCAN_MSM_SIZES[0]}, accumulator off",
-             lambda: accum_off(lambda: M.msm_auto(p16, s16)))):
+             lambda: accum_off(lambda: M.msm_auto(p16, s16))),
+            (f"one host prove n={N_BITS}",
+             lambda: RP.prove(prove_value, prove_gamma, N_BITS, gens)),
+            (f"one host verify n={N_BITS}",
+             lambda: RP.verify(host_proof, gens))):
         t0 = time.perf_counter()
         n_launch, dev_events, dev_ms, top = profile_call(fn)
         log(f"[time] profiled {label} in {time.perf_counter() - t0:.0f} s")
@@ -1125,7 +1278,9 @@ def run(dev, card: str, rate: float) -> dict:
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
-         "library_ms": kern[name]["library_ms"]}
+         "library_ms": kern[name]["library_ms"],
+         **({"paths": NO_PATH[name], "kernel_phase_launches": phase[name]}
+            if name in NO_PATH else {})}
         for name, src, replaces in KERNELS]}
 
 

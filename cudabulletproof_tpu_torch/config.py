@@ -2,7 +2,8 @@
 
 Each is a module constant.  Three are knobs, each with code behind every
 value and read at call time: ``LADDER_WINDOW``, ``MSM_ACCUM_KERNEL`` and
-``MSM_PALLAS_SORT``; every other constant has one value the ported code
+``MSM_PALLAS_SORT``; ``TRACE`` turns the protocol trace on
+(``utils/debug.py``); every other constant has one value the ported code
 runs.
 
 Knobs of the JAX package that have no counterpart here, and why:
@@ -19,7 +20,10 @@ Knobs of the JAX package that have no counterpart here, and why:
   ``MSM_ACCUM_PLAN``, measured on the H100, and ``accum_plan``.
 * ``MSM_VMAP_WINDOWS``, ``MSM_RADIX_SORT`` / ``_BITS``,
   ``MSM_SCAN_RAW_LAYOUT``, ``BP_COMPILE_CACHE``: XLA/TPU-only settings.
+* ``require_exact``: it guards against the JAX package's stage-timing
+  instrumentation (``benchmarks/_stages.py``), which the port does not have.
 """
+import os
 
 # Base count from which a fused MSM takes the bucket accumulator (the JAX
 # package's ``config.FUSED_ACCUM_MIN``); below it the MSM is the windowed
@@ -125,3 +129,14 @@ def msm_window_for(n: int) -> int:
         if c < best_c:
             best_w, best_c = w, c
     return best_w
+
+
+# The host-transcript protocol (``models/rangeproof.py``, ``cli.py``), with
+# the JAX package's defaults: the CLI's default range (``--range-bits``),
+# and the largest n that ``verify_fast`` / ``prove_fast`` send to the native
+# C++ library (a single small proof is host-scale work).
+DEFAULT_RANGE_BITS = 16
+NATIVE_VERIFY_MAX_BITS = 64
+
+# BP_TRACE=1 logs the protocol's steps and values (``utils/debug.py``).
+TRACE = os.environ.get("BP_TRACE", "") not in ("", "0", "false", "False")

@@ -4,6 +4,8 @@
 //   fe_sq_kernel       replaces pallas_field.py::_sq_kernel
 //   fe_pow2523_kernel  replaces pallas_field.py::_pow2523_kernel
 //   fe_invert_kernel   replaces pallas_field.py::_invert_kernel
+//   fe_add3_kernel     replaces pallas_field.py::_add_kernel
+//   fe_sub3_kernel     replaces pallas_field.py::_sub_kernel
 //
 // Layout: rows of 20 int32 limbs, [n, 20] row-major, as the port's public
 // functions hold them (the Pallas kernels transposed to [20, n] tiles to put
@@ -21,6 +23,14 @@
 // which is what the Pallas kernels' VMEM-resident chain bought on the TPU.
 // Both share fe_pow_chain_250 (fe25519.cuh), as the Pallas kernels share
 // _pow_chain_250_block.
+//
+// fe_add3 / fe_sub3 are a + b and a + (K - b) (K the multiple of p of
+// fe25519.cuh, limbs 2*8191 - 1214 | 2*8191), then exactly three rounds of
+// the parallel relaxation, as the Pallas kernels do (fe_relax<3>).  They are
+// not bp::fe_add / bp::fe_sub, which relax twice, as the curve kernels'
+// in-kernel _fadd / _fsub do: the same value mod p, other limbs.  With ~100
+// integer operations against 240 bytes an element they are bound by memory
+// traffic, and at the CLI's 10,000 elements (2.4 MB) by the launch.
 //
 // C interface: each entry takes device pointers, the count n and a
 // cudaStream_t (PyTorch's current stream), launches without synchronizing
@@ -66,6 +76,35 @@ __global__ void fe_invert_kernel(const int32_t* __restrict__ a,
                bp::fe_invert(bp::fe_load(a + i * bp::FE_L)));
 }
 
+__global__ void fe_add3_kernel(const int32_t* __restrict__ a,
+                               const int32_t* __restrict__ b,
+                               int32_t* __restrict__ out, int64_t n) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const bp::fe x = bp::fe_load(a + i * bp::FE_L);
+  const bp::fe y = bp::fe_load(b + i * bp::FE_L);
+  bp::fe r;
+#pragma unroll
+  for (int k = 0; k < bp::FE_L; ++k) r.v[k] = x.v[k] + y.v[k];
+  bp::fe_relax<3>(r);
+  bp::fe_store(out + i * bp::FE_L, r);
+}
+
+__global__ void fe_sub3_kernel(const int32_t* __restrict__ a,
+                               const int32_t* __restrict__ b,
+                               int32_t* __restrict__ out, int64_t n) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const bp::fe x = bp::fe_load(a + i * bp::FE_L);
+  const bp::fe y = bp::fe_load(b + i * bp::FE_L);
+  bp::fe r;
+  r.v[0] = x.v[0] + (bp::FE_KNEG0 - y.v[0]);
+#pragma unroll
+  for (int k = 1; k < bp::FE_L; ++k) r.v[k] = x.v[k] + (bp::FE_KNEG - y.v[k]);
+  bp::fe_relax<3>(r);
+  bp::fe_store(out + i * bp::FE_L, r);
+}
+
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -101,5 +140,21 @@ extern "C" int bp_fe_invert(const int32_t* a, int32_t* out, int64_t n,
   if (n <= 0) return 0;
   fe_invert_kernel<<<blocks_for(n), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(a, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bp_fe_add(const int32_t* a, const int32_t* b, int32_t* out,
+                         int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  fe_add3_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bp_fe_sub(const int32_t* a, const int32_t* b, int32_t* out,
+                         int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  fe_sub3_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
   return static_cast<int>(cudaGetLastError());
 }

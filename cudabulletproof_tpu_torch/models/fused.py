@@ -49,11 +49,12 @@ from ..ops import (curve as C, field as F, msm as M, pippenger,
                    scalar_field as SC)
 from ..ops.consts import on_device
 from ..utils.oracle import ELL
+from ..utils.scalars import sc_random
 from .device_transcript import DeviceTranscript
 from .generators import Generators, get_generators
 from .rangeproof import (DOMAIN_Q, DOMAIN_X, DOMAIN_Y, DOMAIN_Z, IPA_DOMAIN,
                          InnerProductProof, ProveError, RangeProof,
-                         validate_range_input)
+                         structure_ok, validate_range_input)
 
 
 def _unpack_gens(gp: torch.Tensor, n: int):
@@ -425,7 +426,7 @@ def prove(value: int, blinding: int, n: int, gens: Generators | None = None,
     aL_bits = torch.tensor([(value >> i) & 1 for i in range(n)],
                            dtype=torch.int32, device=dev)
     scp = SC.from_ints([value, blinding % ELL]
-                       + [SC.sc_random() for _ in range(4 + 2 * n)], dev)
+                       + [sc_random() for _ in range(4 + 2 * n)], dev)
     return _blob_proof(_prove(gens.pack(n), aL_bits, scp, n).cpu().numpy(),
                        n)
 
@@ -452,19 +453,6 @@ def _proof_blob(proof: RangeProof) -> np.ndarray:
     return np.frombuffer(b"".join(bytes(b) for b in parts), dtype=np.uint8)
 
 
-def _structure_ok(proof: RangeProof, gens_n: int) -> bool:
-    n = proof.n
-    if n < 1 or n & (n - 1) != 0 or proof.ip.n != n:
-        return False
-    if len(proof.ip.L) != len(proof.ip.R) or (1 << len(proof.ip.L)) != n:
-        return False
-    if any(len(b) != 32 for b in
-           [proof.V, proof.A, proof.S, proof.T1, proof.T2, *proof.ip.L,
-            *proof.ip.R]):
-        return False
-    return gens_n >= n
-
-
 def _rlc_weights(rnd, count: int, device) -> torch.Tensor:
     """[count, 2, SL] random-linear-combination weights: from `rnd` (two
     nonzero ints mod l per proof, in proof order) or fresh from `secrets`."""
@@ -482,7 +470,8 @@ def verify(proof: RangeProof, gens: Generators | None = None, rnd=None,
     """Verify one range proof.  The work runs on `gens.device`, else on
     `device` (the card unless the caller asks for the CPU); rnd: optional
     explicit weights (r1, r2), else `secrets`."""
-    if not _structure_ok(proof, gens.n if gens is not None else proof.n):
+    if not (structure_ok(proof)
+            and (gens is None or gens.n >= proof.n)):
         return False
     gens = gens or get_generators(proof.n, device)
     blob = torch.from_numpy(_proof_blob(proof).copy()).to(gens.device)
@@ -499,7 +488,7 @@ def batch_verify(proofs, gens: Generators | None = None, rnd=None,
         return True
     n = proofs[0].n
     gens_n = gens.n if gens is not None else n
-    if any(p.n != n or not _structure_ok(p, gens_n) for p in proofs):
+    if gens_n < n or any(p.n != n or not structure_ok(p) for p in proofs):
         return False
     gens = gens or get_generators(n, device)
     blobs = torch.from_numpy(np.stack([_proof_blob(p) for p in proofs]))

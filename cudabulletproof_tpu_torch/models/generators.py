@@ -4,6 +4,9 @@ The same points as ``cudabulletproof_tpu/models/generators.py``
 (``oracle.hash_to_point``: try-and-increment hash to the curve, cofactor
 cleared), kept in the fused verifier's packed layout ``[2n+2, 80]`` int32:
 rows G[0..n) | H[0..n) | g | h, each x|y|z|t as 20 radix-2^13 limbs.
+The JAX package's fields (``g``, ``h``, ``G``, ``H`` as ``curve.GE`` and
+their oracle copies ``g_pt``, ``h_pt``, ``G_pts``, ``H_pts``) are read-only
+views of that one table.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import field as F
+from ..ops import curve as C, field as F
 from ..utils import oracle
 
 
@@ -35,6 +38,46 @@ class Generators:
             return self.table
         t = self.table
         return torch.cat([t[:n], t[N:N + n], t[2 * N:2 * N + 2]])
+
+    @property
+    def G(self) -> C.GE:
+        """The n vector generators G as GE [n] (views of the table)."""
+        return C.unflatten(self.table[:self.n])
+
+    @property
+    def H(self) -> C.GE:
+        return C.unflatten(self.table[self.n:2 * self.n])
+
+    @property
+    def g(self) -> C.GE:
+        """The value generator g, unbatched."""
+        return C.unflatten(self.table[2 * self.n])
+
+    @property
+    def h(self) -> C.GE:
+        """The blinding generator h, unbatched."""
+        return C.unflatten(self.table[2 * self.n + 1])
+
+    @functools.cached_property
+    def _points(self) -> list:
+        return C.to_oracle(C.unflatten(self.table))
+
+    @property
+    def G_pts(self) -> tuple:
+        """G as python-int oracle points, read from the table."""
+        return tuple(self._points[:self.n])
+
+    @property
+    def H_pts(self) -> tuple:
+        return tuple(self._points[self.n:2 * self.n])
+
+    @property
+    def g_pt(self) -> oracle.Point:
+        return self._points[2 * self.n]
+
+    @property
+    def h_pt(self) -> oracle.Point:
+        return self._points[2 * self.n + 1]
 
 
 def _row(p: oracle.Point) -> list:

@@ -4,6 +4,8 @@
     fe_sq       <- pallas_field.py::_sq_kernel
     fe_pow2523  <- pallas_field.py::_pow2523_kernel
     fe_invert   <- pallas_field.py::_invert_kernel
+    fe_add      <- pallas_field.py::_add_kernel (a + b, three relax rounds)
+    fe_sub      <- pallas_field.py::_sub_kernel (a + (K - b), three rounds)
 
 Each wrapper takes CUDA int32 tensors of 20-limb field elements whose batch
 dims broadcast, expands them to one shape, makes them contiguous and flat
@@ -11,7 +13,7 @@ dims broadcast, expands them to one shape, makes them contiguous and flat
 ``torch.empty``, and restores the batch shape.  It raises on anything the
 kernel does not take; there is no fallback.  The plain twins live in
 ``ops/field.py`` (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
-``invert_plain``).
+``invert_plain``, ``add3_plain``, ``sub3_plain``).
 
 ``launches`` counts kernel launches per kernel, one per launch and nowhere
 else, so a run can show that its path went through the kernels.
@@ -23,7 +25,8 @@ import torch
 from ..utils import build
 
 L = 20
-launches = {"fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0}
+launches = {"fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0,
+            "fe_add": 0, "fe_sub": 0}
 
 
 def flat_operands(width: int, *ts: torch.Tensor):
@@ -72,3 +75,11 @@ def pow2523(a: torch.Tensor) -> torch.Tensor:
 
 def invert(a: torch.Tensor) -> torch.Tensor:
     return _run("fe_invert", a)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _run("fe_add", a, b)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _run("fe_sub", a, b)

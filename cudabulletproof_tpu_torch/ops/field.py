@@ -7,14 +7,18 @@ little-endian, kept *weakly normalized* (every limb in ``[0, BOUND]`` with
 fully.  Every partial product of the 20x20 limb convolution is below
 ``20 * 8799^2 < 2^31``, so all arithmetic is exact in int32.
 
-Dispatch: ``mul``, ``sq``, ``pow2523`` and ``invert`` run their hand-written
-CUDA kernel (``ops/cuda_field.py``) on a CUDA tensor and their plain torch
-twin (``mul_plain``, ``sq_plain``, ``pow2523_plain``, ``invert_plain``) on a
-CPU tensor.  The twins compute the same limbs as the kernels and as the JAX
+Dispatch: ``mul``, ``sq``, ``pow2523``, ``invert``, ``add3`` and ``sub3`` run
+their hand-written CUDA kernel (``ops/cuda_field.py``) on a CUDA tensor and
+their plain torch twin (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
+``invert_plain``, ``add3_plain``, ``sub3_plain``) on a CPU tensor.  The twins compute the same limbs as the kernels and as the JAX
 package's ``mul_xla`` / Pallas ``_conv_fold`` (20x20 convolution, fold x608,
 three relax passes), so kernel, twin and reference agree limb for limb.
-Everything else here is plain torch on either device, as the JAX package
-computes it outside any Pallas kernel.
+``add3`` / ``sub3`` are the Pallas ``PF.add`` / ``PF.sub`` (three relax
+passes), which only the CLI's field microbenchmark calls; ``add`` / ``sub``
+are the JAX package's plain ``F.add`` / ``F.sub`` (two passes), which every
+other caller uses, and stay plain torch.  Everything else here is plain
+torch on either device, as the JAX package computes it outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -122,6 +126,31 @@ def neg(b: torch.Tensor) -> torch.Tensor:
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _relax(a + (on_device(_K_NEG, b.device) - b), 2)
+
+
+def add3_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fe_add kernel: a + b, three relax passes."""
+    return _relax(a + b, 3)
+
+
+def sub3_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fe_sub kernel: a + (K - b), three relax passes."""
+    return _relax(a + (on_device(_K_NEG, b.device) - b), 3)
+
+
+def add3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b mod p as the Pallas ``_add_kernel`` computes it (three relax
+    passes); batch dims broadcast."""
+    if _on_cpu(a, b):
+        return add3_plain(a, b)
+    return cuda_field.add(a, b)
+
+
+def sub3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b mod p as the Pallas ``_sub_kernel`` computes it."""
+    if _on_cpu(a, b):
+        return sub3_plain(a, b)
+    return cuda_field.sub(a, b)
 
 
 def limb_conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Multi-scalar multiplication routed by size, the counterpart of
 ``cudabulletproof_tpu/ops/msm.py`` (``_pad_pow2`` :40, ``msm_windowed``
-:54, ``msm_auto`` :84, ``concat_ge`` :199).
+:54, ``msm_auto`` :84, ``msm_ints`` :142, ``msm_multi_compressed`` :156,
+``msm_ints_multi`` :180, ``concat_ge`` :199).
 
 ``msm_auto`` takes the JAX package's TPU routes: up to
 ``config.MSM_LADDER_MAX`` points the windowed ladder plus the tile reduction
@@ -13,6 +14,13 @@ above ``config.MSM_ACCUM_CHUNK`` points; with it off the sort-plus-scan
 above ``config.MSM_CHUNK`` points at the chunk's window.  Chunk results are
 folded by ``curve.tree_reduce``.  It runs on the device of its inputs: the
 kernels on CUDA tensors, their plain twins on CPU tensors.
+
+``msm_ints`` and ``msm_ints_multi`` are the host-transcript protocol's
+MSMs: Python-int scalars mod l, identity points and zero scalars padded to
+a power of two of at least 64 (the JAX package's ``pad_min``, which keeps
+its compiled shapes few; here it keeps the launch shapes the same).
+``msm_ints_multi`` runs B MSMs over shared bases as one ``[B, m]`` ladder
+(``curve.scalarmult``), a halving tree of adds and one batch compression.
 """
 from __future__ import annotations
 
@@ -99,3 +107,53 @@ def concat_ge(*parts: C.GE) -> C.GE:
     as one row): builds MSM bases."""
     return C.GE(*(torch.cat([p[i] if p[i].dim() == 2 else p[i][None]
                              for p in parts]) for i in range(4)))
+
+
+def _scalar_limbs(scalars, device) -> torch.Tensor:
+    """Python-int scalars -> [m, 20] limbs.  Each is taken mod p, as the
+    JAX package does, and must then be below 2^253: the protocol passes
+    scalars mod l, and the ladders of the JAX package read 253 bits."""
+    vals = [s % F.P for s in scalars]
+    if any(v >> 253 for v in vals):
+        raise ValueError("an MSM scalar is 2^253 or more (pass scalars mod l)")
+    return F.from_ints(vals, device)
+
+
+def msm_ints(points: C.GE, scalars, pad_min: int = 64) -> C.GE:
+    """sum_i scalars[i] * points[i] for Python-int scalars (mod l), padded to
+    a power of two >= pad_min, on the device of the points.  Returns one GE."""
+    if points.x.shape[0] != len(scalars):
+        raise ValueError(f"{points.x.shape[0]} points, {len(scalars)} scalars")
+    p, s = _pad_pow2(points, _scalar_limbs(scalars, points.x.device), pad_min)
+    return msm_auto(p, s)
+
+
+def msm_multi_compressed(points: C.GE, scalars: torch.Tensor) -> torch.Tensor:
+    """B MSMs over the same bases, compressed: points GE [m] (m a power of
+    two), scalars [B, m, 20] -> uint8 [B, 32].  One ladder over [B, m]
+    (ge_ladder_win or ge_ladder_bin on the card), log2(m) halvings of the
+    low half plus the high half (ge_add), one batch inversion for the B
+    results."""
+    B, m = scalars.shape[0], scalars.shape[1]
+    pb = C.GE(*(c.expand(B, m, F.L) for c in points))
+    acc = C.scalarmult(pb, scalars)                       # GE [B, m]
+    while m > 1:
+        half = m // 2
+        acc = C.add(C.GE(*(c[:, :half] for c in acc)),
+                    C.GE(*(c[:, half:m] for c in acc)))
+        m = half
+    return C.to_bytes_batch(C.GE(*(c[:, 0] for c in acc)))
+
+
+def msm_ints_multi(points: C.GE, scalar_lists, pad_min: int = 64) -> list:
+    """k Python-int scalar lists over shared bases -> k compressed points
+    (bytes), with one copy to the host."""
+    m = points.x.shape[0]
+    if any(len(sl) != m for sl in scalar_lists):
+        raise ValueError(f"every scalar list needs {m} scalars")
+    sc = torch.stack([_scalar_limbs(sl, points.x.device)
+                      for sl in scalar_lists])                  # [k, m, 20]
+    pts, _ = _pad_pow2(points, sc[0], pad_min)
+    sc = torch.nn.functional.pad(sc, (0, 0, 0, pts.x.shape[0] - m))
+    out = msm_multi_compressed(pts, sc).cpu().numpy()
+    return [bytes(row.tolist()) for row in out]

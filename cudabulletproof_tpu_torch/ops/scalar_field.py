@@ -14,7 +14,6 @@ digits dominate the subtrahend.  Every partial product and sum stays below
 from __future__ import annotations
 
 import functools
-import secrets
 
 import numpy as np
 import torch
@@ -219,12 +218,6 @@ def sum_mod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 def inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """<a, b> mod l over dim 0: a batched ``mul``, then ``sum_mod``."""
     return sum_mod(mul(a, b), dim=0)
-
-
-def sc_random() -> int:
-    """A uniform scalar in [0, l) from ``secrets`` (the prover's blinding
-    factors and nonces; no torch generator draws key material)."""
-    return secrets.randbits(512) % ELL
 
 
 # --- canonical form and comparisons ------------------------------------------

@@ -44,6 +44,8 @@ SIGNATURES = {
     "bp_ge_ladder_win": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
     "bp_ge_ladder_bin": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
     "bp_fe_invert": [_P, _P, _N, _P],           # a, out, n, stream
+    "bp_fe_add": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
+    "bp_fe_sub": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
     "bp_ge_reduce": [_P, _P, _N, _P],           # p, out, n, stream
     # pre, dg, part, out, n, nw, w, threads, slices, stream
     "bp_ge_bucket_accum": [_P, _P, _P, _P, _N, _N, _N, _N, _N, _P],

@@ -20,6 +20,7 @@ from cudabulletproof_tpu.ops import (curve as JC, field as JF,
 from cudabulletproof_tpu.utils import oracle
 from cudabulletproof_tpu_torch.ops import cuda_curve, curve as TC, field as TF
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 ELL = oracle.ELL
 

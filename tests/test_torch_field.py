@@ -19,6 +19,7 @@ from cudabulletproof_tpu.utils import oracle
 from cudabulletproof_tpu_torch.ops import cuda_field, field as TF
 from cudabulletproof_tpu_torch.utils import build
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 P = TF.P
 
@@ -117,6 +118,61 @@ def test_add_sub_neg_mul_small_match_jax(fe):
     jx, jy = JF.cswap(_j(swap), ja, jb)
     assert np.array_equal(x.numpy(), np.asarray(jx))
     assert np.array_equal(y.numpy(), np.asarray(jy))
+
+
+# every value p .. 2^255 - 1 (limbs not reduced mod p)
+ADD_EDGES = [[TF.BOUND] * 20, [0x1FFF] * 20, _raw(0), _raw(P - 1)] + [
+    _raw(v) for v in range(P, 1 << 255)]
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 300, 10_000])
+def test_add3_sub3_twins_match_pallas(n):
+    """add3_plain / sub3_plain (the twins of the fe_add / fe_sub kernels)
+    equal the Pallas ``_add_kernel`` / ``_sub_kernel`` (``PF.add`` /
+    ``PF.sub``, interpret mode) limb for limb, at sizes that are not
+    multiples of its 256-lane tile, on random weak limbs with the edge rows
+    (all limbs 8799 or 8191, 0, p-1, p..2^255-1) among them; the values are
+    a + b and a - b mod p, and ``add3`` / ``sub3`` take the twins on the
+    CPU."""
+    rng = np.random.default_rng(n)
+    edges = np.array(ADD_EDGES, dtype=np.int32)
+    a = rng.integers(0, TF.BOUND + 1, size=(n, 20), dtype=np.int32)
+    b = rng.integers(0, TF.BOUND + 1, size=(n, 20), dtype=np.int32)
+    k = min(n, len(edges))
+    a[rng.choice(n, k, replace=False)] = edges[:k]
+    b[rng.choice(n, k, replace=False)] = edges[::-1][:k]
+    got_add = TF.add3_plain(_t(a), _t(b)).numpy()
+    got_sub = TF.sub3_plain(_t(a), _t(b)).numpy()
+    assert np.array_equal(got_add, np.asarray(PF.add(_j(a), _j(b))))
+    assert np.array_equal(got_sub, np.asarray(PF.sub(_j(a), _j(b))))
+    assert np.array_equal(TF.add3(_t(a), _t(b)).numpy(), got_add)
+    assert np.array_equal(TF.sub3(_t(a), _t(b)).numpy(), got_sub)
+    va, vb = _value(a), _value(b)
+    assert _value(got_add) == [(x + y) % P for x, y in zip(va, vb)]
+    assert _value(got_sub) == [(x - y) % P for x, y in zip(va, vb)]
+    assert int(got_add.min()) >= 0 and int(got_sub.min()) >= 0
+
+
+def test_add3_sub3_dispatch(fe):
+    """On a tensor that is not on the CPU (``meta`` stands in for CUDA)
+    ``add3`` / ``sub3`` go to the kernel wrappers, which refuse it; the
+    plain ``add`` / ``sub`` (two relax passes) launch nothing on any
+    device; the wrappers refuse CPU tensors."""
+    a, b = fe
+    meta = torch.empty((3, 20), dtype=torch.int32, device="meta")
+    before = dict(cuda_field.launches)
+    assert TF.add(meta, meta).shape == TF.sub(meta, meta).shape == (3, 20)
+    for fn in (TF.add3, TF.sub3):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            fn(meta, meta)
+    for fn in (cuda_field.add, cuda_field.sub):
+        with pytest.raises(ValueError):
+            fn(_t(a), _t(b))
+    assert cuda_field.launches == before
+    # add3 is not add: three relax passes against two, the same value
+    two, three = TF.add(_t(a), _t(b)), TF.add3(_t(a), _t(b))
+    assert torch.equal(three, TF._relax(two, 1))
+    assert _value(two.numpy()) == _value(three.numpy())
 
 
 def test_canonical_bytes_predicates_match_jax(fe):

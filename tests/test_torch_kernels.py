@@ -14,16 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+import make_host_golden as host_golden
 import make_prove_golden as golden
-from cudabulletproof_tpu_torch import config
-from cudabulletproof_tpu_torch.models import fused as TFU
+from cudabulletproof_tpu_torch import cli, config
+from cudabulletproof_tpu_torch.models import fused as TFU, rangeproof as TR
 from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field, cuda_sort,
                                            curve as TC, field as TF,
                                            msm as TM, pippenger as TP,
                                            sort as TSO)
-from cudabulletproof_tpu_torch.utils import oracle
+from cudabulletproof_tpu_torch.utils import oracle, serialization
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 pytestmark = pytest.mark.cuda
 
@@ -69,6 +71,59 @@ def test_invert_kernel_equals_twin(dev, n):
     zero = TF.is_zero(a)
     assert torch.equal(one[..., 0], (~zero).to(torch.int32))
     assert int(one[..., 1:].abs().sum()) == 0
+
+
+# all limbs 8799 or 8191, 0, p-1 and every value p .. 2^255 - 1
+ADD_EDGES = [[TF.BOUND] * 20, [0x1FFF] * 20, _raw(0), _raw(TF.P - 1)] + [
+    _raw(v) for v in range(TF.P, 1 << 255)]
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 300, 10_000])
+def test_add_sub_kernels_equal_twins(dev, n):
+    """fe_add / fe_sub against add3_plain / sub3_plain, limb for limb, at
+    sizes that are not multiples of 256, with the edge rows."""
+    rng = np.random.default_rng(n)
+    a, b = _rand(rng, (n, 20), dev), _rand(rng, (n, 20), dev)
+    edges = torch.tensor(ADD_EDGES, dtype=torch.int32, device=dev)
+    k = min(n, len(ADD_EDGES))
+    a[:k] = edges[:k]
+    b[n - k:] = edges.flip(0)[:k]
+    got = cuda_field.add(a, b)
+    assert torch.equal(got, TF.add3_plain(a, b))
+    assert torch.equal(TF.add3(a, b), got)
+    got = cuda_field.sub(a, b)
+    assert torch.equal(got, TF.sub3_plain(a, b))
+    assert torch.equal(TF.sub3(a, b), got)
+
+
+def test_add_sub_kernels_contract(dev):
+    """Broadcast and strided operands; n = 0 launches nothing; CPU and
+    non-int32 operands are refused; one launch counted per call."""
+    rng = np.random.default_rng(4)
+    a = _rand(rng, (4, 5, 20), dev)
+    d = TF.from_int(oracle.D, device=dev)                 # [20] constant
+    assert torch.equal(cuda_field.add(d, a), TF.add3_plain(d, a))
+    assert torch.equal(cuda_field.sub(a, d), TF.sub3_plain(a, d))
+    t = a.transpose(0, 1)                                 # non-contiguous
+    assert torch.equal(cuda_field.sub(t, t.flip(0)),
+                       TF.sub3_plain(t, t.flip(0)))
+    before = dict(cuda_field.launches)
+    empty = torch.zeros((0, 20), dtype=torch.int32, device=dev)
+    assert cuda_field.add(empty, empty).shape == (0, 20)
+    assert cuda_field.sub(empty, empty).shape == (0, 20)
+    for fn in (cuda_field.add, cuda_field.sub):
+        with pytest.raises(TypeError):
+            fn(a.long(), a.long())
+        with pytest.raises(ValueError):
+            fn(a, a.cpu())
+        with pytest.raises(ValueError):
+            fn(a[..., :19], a[..., :19])
+    assert cuda_field.launches == before
+    cuda_field.add(a, a)
+    cuda_field.sub(a, a)
+    assert {k: cuda_field.launches[k] - before[k] for k in before} == {
+        "fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0,
+        "fe_add": 1, "fe_sub": 1}
 
 
 def test_field_broadcast_and_strides(dev):
@@ -224,6 +279,7 @@ def test_prove_on_card_matches_jax_fixture(dev, monkeypatch, window):
 
 def test_launch_counts_and_refusals(dev):
     a = torch.zeros((3, 20), dtype=torch.int32, device=dev)
+    field_before = dict(cuda_field.launches)
     before = cuda_field.launches["fe_mul"]
     cuda_field.mul(a, a)
     assert cuda_field.launches["fe_mul"] == before + 1
@@ -263,6 +319,14 @@ def test_launch_counts_and_refusals(dev):
     inv = cuda_field.launches["fe_invert"]
     TF.invert(a)
     assert cuda_field.launches["fe_invert"] == inv + 1
+    TF.add3(a, a)
+    TF.sub3(a, a)
+    TF.add(a, a)                                  # plain torch: no launch
+    TF.sub(a, a)
+    assert {k: cuda_field.launches[k] - field_before[k]
+            for k in field_before} == {
+        "fe_mul": 1, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 1,
+        "fe_add": 1, "fe_sub": 1}
     with pytest.raises(ValueError):
         cuda_curve.bucket_accum(pre, dg, 3, 32, 1)        # w outside 4..8
     with pytest.raises(ValueError):
@@ -455,3 +519,44 @@ def test_scan_sort_launch_counts_and_refusals(dev):
     with pytest.raises(ValueError):
         cuda_sort.hist(keys.reshape(2, 4, 128), 4)
     assert {**cuda_curve.launches, **cuda_sort.launches} == after
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_host_prove_on_card_matches_jax_fixture(dev, n):
+    """The host prover on the card, fed the fixture's randomness, writes the
+    JAX package's blob byte for byte; verify and verify_deterministic give
+    the JAX verdicts on every case of the fixture."""
+    with np.load(host_golden.golden_path(n)) as f:
+        fx = {k: f[k] for k in f.files}
+    gens = get_generators(n, dev)
+    value, blinding = host_golden.from_rows(fx["secret"])
+    rand = iter(host_golden.from_rows(fx["rand"]))
+    proof = TR.prove(value, blinding, n, gens, rand=lambda: next(rand))
+    blob = serialization.serialize_range_proof(proof)
+    assert blob == fx["blob"].tobytes()
+    got_v, got_d = [], []
+    for data in host_golden.corruptions(blob, n).values():
+        p = serialization.deserialize_range_proof(data)
+        got_v.append(TR.verify(p, gens))
+        got_d.append(TR.verify_deterministic(p, gens))
+    small = get_generators(n // 2, dev)
+    got_v.append(TR.verify(proof, small))
+    got_d.append(TR.verify_deterministic(proof, small))
+    assert got_v == fx["verify"].tolist()
+    assert got_d == fx["verify_det"].tolist()
+
+
+def test_cli_on_card(dev, monkeypatch, capsys):
+    """The CLI on the card (no BP_PLATFORM): SUCCESS, exit 0, the device
+    named GPU; its microbenchmark launches fe_add, fe_mul and fe_sq."""
+    monkeypatch.delenv("BP_PLATFORM", raising=False)
+    assert cli.main(["--range-bits", "8", "--skip-microbench"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert any(ln.startswith("GPU (fused) verification:  SUCCESS")
+               for ln in out)
+    assert out[-1] == '{"all_tests": "SUCCESS"}'
+    before = dict(cuda_field.launches)
+    cli.field_microbench(300)
+    assert all(cuda_field.launches[k] > before[k]
+               for k in ("fe_add", "fe_mul", "fe_sq"))
+    assert cuda_field.launches["fe_sub"] == before["fe_sub"]

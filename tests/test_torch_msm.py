@@ -48,6 +48,7 @@ from cudabulletproof_tpu_torch.ops import (curve as TC, field as TF,
 from cudabulletproof_tpu_torch.utils import oracle
 from test_torch_verify import _run_dir, _shared
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 ELL = oracle.ELL
 P = oracle.P

@@ -43,6 +43,7 @@ from cudabulletproof_tpu_torch.utils import native, oracle
 from cudabulletproof_tpu_torch.utils.serialization import (
     deserialize_range_proof, serialize_range_proof)
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 ELL = oracle.ELL
 TESTS = Path(__file__).resolve().parent

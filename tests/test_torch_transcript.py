@@ -22,6 +22,7 @@ from cudabulletproof_tpu_torch.models.device_transcript import DeviceTranscript
 from cudabulletproof_tpu_torch.ops import field as TF, scalar_field as TS
 from cudabulletproof_tpu_torch.ops.sha256 import sha256, sha256_concat
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 ELL = oracle.ELL
 

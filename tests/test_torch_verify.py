@@ -51,6 +51,7 @@ from cudabulletproof_tpu_torch.ops import (curve as TC, field as TF,
                                            scalar_field as TS)
 from cudabulletproof_tpu_torch.utils import serialization as TSER
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
+pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 ELL = oracle.ELL
 TESTS = Path(__file__).resolve().parent
