@@ -8,7 +8,7 @@ Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once.
-  3. kernels: each of the sixteen kernels against its plain torch twin on
+  3. kernels: each of the eighteen kernels against its plain torch twin on
      the card, on inputs from a fixed numpy seed at the paths' shapes plus
      edge inputs; equality must be exact, limb for limb (tolerance 0:
      integer arithmetic).  fe_add / fe_sub at 1, 25 (the edge rows),
@@ -21,7 +21,14 @@ Phases, each raising on failure (so the exit code is nonzero):
      fewer rows than lanes, with the identity, the base and the 8-torsion
      points among them; sort_hist / sort_rank at 2^16 keys with radix 64
      and 128 (the 6 + 7 bit passes of w = 13), random, all equal and two
-     values.  Kernel and twin times, at the last shape of each kernel:
+     values.  fe_inner_product at 1, 255, 256, 257, 10,000, 33,068
+     (tiles share the partial's columns from 32,768 on), 2^17 (the bound)
+     and 2^16 (the bench's, timed), fe_inner_product_batched at B = 1, 3,
+     16 with n = 300 and 4096: the partial sums (the wrappers, timed
+     against ip_partial_plain) and the public functions' limbs after the
+     combine, on random weak limbs with the edge rows among them; their
+     bound is 160 bytes an element over the HBM rate (400 IMADs an element
+     is less).  Kernel and twin times, at the last shape of each kernel:
      median of CUDA-event runs; the bound is the larger of the kernel's
      int32 multiply-adds over the card's IMAD rate and its bytes over the
      HBM rate; the sort kernels' library yardstick is a stable
@@ -64,13 +71,22 @@ Phases, each raising on failure (so the exit code is nonzero):
      byte for byte; a proof with fresh randomness must pass
      rangeproof.verify, verify_deterministic, fused.verify and the native
      verifier, and a tampered copy must fail all four.
-  9. the main paths, counted: the launch counters are set to 0 before each
+  9. the benchmarks, each its own process: ``python -m
+     cudabulletproof_tpu_torch --benchmark``, ``python -m
+     cudabulletproof_tpu_torch.benchmarks.bench_msm --big`` and ``python -m
+     cudabulletproof_tpu_torch.bench``; each must exit 0 and print its
+     lines (echoed with the card's name) with every check passed: the
+     split-half MSM identities at 2^16 and 2^20, every proof accepted, the
+     bench's MSMs exact.
+ 10. the main paths, counted: the launch counters are set to 0 before each
      path (one verify; a batch of 16; batches of 128 and 256; the four
      msm_auto sizes; with the accumulator off msm_auto at 2^16 and 2^20,
      msm_pippenger at 2^16 under MSM_PALLAS_SORT and the batch of 1024;
-     phase 7's; the CLI at --range-bits 64) and read after it; every kernel
-     but fe_sub must launch on them (fe_sub has no program path, in the JAX
-     package either: it must launch in phase 3).  Then wall times
+     phase 7's; the CLI at --range-bits 64; the bench, ``cli.main
+     (["--benchmark"])`` in this process) and read after it; every kernel
+     but fe_sub and fe_inner_product_batched must launch on them (those two
+     have no program path, in the JAX package either: they must launch in
+     phase 3).  Then wall times
      (fused.prove under each ladder, median of 3, with fresh randomness:
      the last proof of each must pass the native verifier; the host prover
      at n = 16 and 64, the host verifiers, fused.verify and the native
@@ -95,6 +111,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -108,6 +125,9 @@ from cudabulletproof_tpu_torch.ops import curve as C, field as F
 from cudabulletproof_tpu_torch.ops import msm as M, pippenger as PP
 from cudabulletproof_tpu_torch.ops import scalar_field as SC, sort as SO
 from cudabulletproof_tpu_torch.utils import build, native, oracle
+from cudabulletproof_tpu_torch.utils.profiling import (
+    FE_BYTES, IMAD_ADD, IMAD_DBL, IMAD_INNER, IMAD_MADD, IMAD_MUL, IMAD_SQ,
+    PT_BYTES, bound, imad_per_s, smi)
 from cudabulletproof_tpu_torch.utils.serialization import (
     deserialize_range_proof, serialize_range_proof)
 
@@ -151,28 +171,18 @@ FOLD_ROWS = (1, 100, 128, 2047, 8191)
 SORT_KEYS = 1 << 16
 # the field add / sub kernels: element counts, the last the CLI's
 ADD_SHAPES = (1, 255, 257, 10_000)
+# the inner products: element counts (the tile edges, 32,768 + 300 where
+# tiles start to share the partial's columns, 2^17 the bound), the last,
+# 2^16, the bench's and the one timed; (B, n) of the batched kernel, the
+# last timed
+IP_SHAPES = (1, 255, 256, 257, 10_000, 32_768 + 300, 1 << 17, 1 << 16)
+IP_BATCHED_SHAPES = ((1, 300), (3, 300), (16, 300), (1, 4096), (3, 4096),
+                     (16, 4096))
 # the host-transcript protocol: the JAX package's host prover fixture, the
 # CLI's runs, the host prover's timed sizes
 HOST_GOLDEN = "tests/golden/host_prove_n{}.npz"
 CLI_RUNS = ([], ["--range-bits", str(N_BITS)])
 HOST_PROVE_BITS = (16, N_BITS)
-
-# The card's rates for the bounds: HBM3 at 3.35 TB/s (NVIDIA's H100 SXM data
-# sheet); 64 32-bit integer multiply-adds per clock per SM (CUDA C++
-# Programming Guide, throughput of arithmetic instructions, compute
-# capability 9.0), times the SMs and the maximum SM clock nvidia-smi reports.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_CLOCK_PER_SM = 64
-# int32 multiply-adds of one field op as the kernels compute it: the limb
-# products (400 for a multiply, 210 for a square), the 38 fold products x608
-# and the 3 relaxation carries x608 (additions and masks not counted)
-IMAD_MUL = 400 + 38 + 3
-IMAD_SQ = 210 + 38 + 3
-IMAD_ADD = 9 * IMAD_MUL                       # unified point add
-IMAD_DBL = 4 * IMAD_SQ + 4 * IMAD_MUL         # dedicated doubling
-IMAD_MADD = 7 * IMAD_MUL                      # mixed add of the accumulator
-PT_BYTES = 4 * F.L * 4                        # 320 B a point row
-FE_BYTES = F.L * 4                            # 80 B a field element
 
 KERNELS = [
     # name, source, TPU kernel it replaces
@@ -208,11 +218,18 @@ KERNELS = [
      "cudabulletproof_tpu/ops/pallas_sort.py:41"),
     ("sort_rank", "scan_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_sort.py:56"),
+    ("fe_inner_product", "field_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_field.py:268"),
+    ("fe_inner_product_batched", "field_kernels.cu",
+     "cudabulletproof_tpu/ops/pallas_field.py:329"),
 ]
 # kernels that no program path launches, in the JAX package either; each
 # must launch in the kernel phase instead
 NO_PATH = {"fe_sub": "none in the JAX package (only its tests call "
-                     "pallas_field.sub)"}
+                     "pallas_field.sub)",
+           "fe_inner_product_batched": "none in the JAX package (only its "
+                                       "tests call "
+                                       "pallas_field.inner_product_batched)"}
 
 
 def log(*args):
@@ -238,30 +255,6 @@ def accum_off(fn):
         return fn()
     finally:
         config.MSM_ACCUM_KERNEL = True
-
-
-# --- 1. device ------------------------------------------------------------
-def smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def imad_per_s() -> tuple:
-    """(IMAD rate of the card, the max SM clock in MHz it rests on)."""
-    mhz = float(smi("clocks.max.sm").split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return IMAD_PER_CLOCK_PER_SM * sms * mhz * 1e6, mhz
-
-
-def bound(imads: float, nbytes: float, rate: float) -> tuple:
-    """(bound_ms, bound_by): the larger of operations over the IMAD rate and
-    bytes over the HBM rate."""
-    ops_ms = imads / rate * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                              "bytes")
 
 
 # --- 3. kernels against their twins ---------------------------------------
@@ -389,6 +382,7 @@ def kernel_cases(rng, dev):
         return np.array([raw_limbs(v) for v in vals], dtype=np.int32)
 
     cases = {k[0]: [] for k in KERNELS}
+    IP_OPERANDS.clear()
     for n in FE_SHAPES:
         a = t(np.concatenate([rand_fe(n), edge_fe()]))
         b = t(np.concatenate([rand_fe(n), edge_fe()[::-1]]))
@@ -525,6 +519,33 @@ def kernel_cases(rng, dev):
              lambda kb=kb, b=base, r=radix: SO.rank_plain(kb, b, r),
              0, 2 * SORT_KEYS * 4 + table,
              lambda f=flat: torch.argsort(f, stable=True)))
+    def ip_rows(shape):
+        """Random weak limbs [*shape, 20] with the edge rows at random
+        places of each row of elements."""
+        x = rand_fe(int(np.prod(shape))).reshape(*shape, F.L)
+        edge = edge_fe()
+        for row in x.reshape(-1, shape[-1], F.L):
+            k = min(shape[-1], len(edge))
+            row[rng.choice(shape[-1], size=k, replace=False)] = edge[:k]
+        return t(x)
+
+    for n in IP_SHAPES:
+        a, b = ip_rows((1, n)), ip_rows((1, n))
+        cases["fe_inner_product"].append(
+            (n, lambda a=a, b=b: cuda_field.inner_product_partial(
+                a, b, batched=False),
+             lambda a=a, b=b: F.ip_partial_plain(a, b),
+             n * IMAD_INNER, 2 * n * FE_BYTES + FE_BYTES))
+        IP_OPERANDS[("fe_inner_product", n)] = (a[0], b[0])
+    for rows, n in IP_BATCHED_SHAPES:
+        a, b = ip_rows((rows, n)), ip_rows((rows, n))
+        cases["fe_inner_product_batched"].append(
+            (f"{rows} x {n}",
+             lambda a=a, b=b: cuda_field.inner_product_partial(
+                 a, b, batched=True),
+             lambda a=a, b=b: F.ip_partial_plain(a, b),
+             rows * n * IMAD_INNER, rows * (2 * n + 1) * FE_BYTES))
+        IP_OPERANDS[("fe_inner_product_batched", (rows, n))] = (a, b)
     edge = edge_fe()
     for n in ADD_SHAPES[:1] + (len(edge),) + ADD_SHAPES[1:]:
         a, b = rand_fe(n), rand_fe(n)
@@ -540,6 +561,35 @@ def kernel_cases(rng, dev):
                                 lambda a=a, b=b, p=plain: p(a, b),
                                 0, 3 * n * FE_BYTES))
     return cases
+
+
+# the inner products' operands by (kernel, shape), kept by kernel_cases for
+# check_inner_products
+IP_OPERANDS = {}
+
+
+def check_inner_products() -> None:
+    """The public functions around the fe_inner_product kernels: at every
+    shape of the kernel phase ``field.inner_product`` /
+    ``inner_product_batched`` on the card (the kernel, then the column
+    combine and the fold in torch) give the plain twins' limbs exactly; the
+    time of each at the timed shape, beside the twin's."""
+    fns = {"fe_inner_product": (F.inner_product, F.inner_product_plain),
+           "fe_inner_product_batched": (F.inner_product_batched,
+                                        F.inner_product_batched_plain)}
+    for (name, shape), (a, b) in IP_OPERANDS.items():
+        fn, plain = fns[name]
+        got = fn(a, b)
+        if not torch.equal(got, plain(a, b)):
+            raise AssertionError(f"{name} at {shape}: the public function's "
+                                 "limbs != the twin's")
+        timed = shape in (IP_SHAPES[-1], IP_BATCHED_SHAPES[-1])
+        if timed:
+            ms = cuda_median_ms(lambda: fn(a, b))
+            plain_ms = cuda_median_ms(lambda: plain(a, b), reps=3)
+        log(f"kernel {name:15s} n={shape}: field.{fn.__name__} limbs equal "
+            "to the twin's" + (f", {ms:.4f} ms (kernel, combine and fold) "
+                               f"vs plain {plain_ms:.3f} ms" if timed else ""))
 
 
 def as_tensor(out) -> torch.Tensor:
@@ -594,6 +644,7 @@ def check_kernels(dev, rate) -> dict:
         if got != [s * p for s, p in zip(scs, pts)]:
             raise AssertionError(f"{ladder.__name__} kernel disagrees with "
                                  "the oracle")
+    check_inner_products()
     tor = oracle.small_order_points()
     many = [oracle.hash_to_point(b"tiles", i) for i in range(292)] + tor
     want = oracle.IDENTITY
@@ -654,11 +705,15 @@ def check_single(gens, rng):
 
 
 def batch_proofs(rng, count: int):
-    proofs = []
-    for v in rng.integers(0, 1 << 63, size=count, dtype=np.int64):
-        blob = native_proof(int(v), int.from_bytes(rng.bytes(32), "little"))
-        proofs.append(deserialize_range_proof(blob))
-    return proofs
+    """`count` native proofs of random values and blindings (drawn from rng
+    in order), made on every host core at once (the native prover releases
+    the interpreter lock and reads its nonces from /dev/urandom)."""
+    values = [int(v) for v in rng.integers(0, 1 << 63, size=count,
+                                            dtype=np.int64)]
+    gammas = [int.from_bytes(rng.bytes(32), "little") for _ in values]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        blobs = list(pool.map(native_proof, values, gammas))
+    return [deserialize_range_proof(b) for b in blobs]
 
 
 def check_batch(gens, proofs):
@@ -994,7 +1049,109 @@ def check_host(gens):
     return fresh, bench
 
 
-# --- 9. timing ----------------------------------------------------------------
+# --- 9. the benchmarks -----------------------------------------------------
+REPO = Path(__file__).resolve().parent
+BENCH_MSM = "cudabulletproof_tpu_torch.benchmarks.bench_msm"
+# (label, python arguments, MSM sizes as powers of two; None for bench.py)
+BENCH_RUNS = (
+    ("--benchmark", ["-m", "cudabulletproof_tpu_torch", "--benchmark"],
+     (16,)),
+    ("bench_msm --big", ["-m", BENCH_MSM, "--big"], (16, 20)),
+    ("bench", ["-m", "cudabulletproof_tpu_torch.bench"], None),
+)
+BENCH_TIMEOUT_S = 400
+BENCH_PROOF_METRICS = [
+    "range_prove_16bit_latency", "range_verify_16bit_latency",
+    "range_verify_fast_16bit_latency", "range_prove_fast_16bit_latency",
+    "aggregated_verify_m16_n16_latency", "batch_verify_4_proofs_latency"]
+BENCH_KEYS = ["range_proof_verify_16bit_latency",
+              "gpu_batch16_verify_ms_per_proof", "gpu_msm_2e16_points_per_sec",
+              "gpu_msm_2e20_points_per_sec", "gpu_msm_window_bits"]
+# the kernels the bench path launches for certain: the inner product and
+# field multiplies, make_points' ladders, the accumulator MSM at 2^16, the
+# split-half check's add
+BENCH_KERNELS = ["fe_inner_product", "fe_mul", "fe_invert", "ge_ladder_win",
+                 "ge_bucket_accum", "ge_add"]
+
+
+def check_bench_msm_lines(lines, exps) -> None:
+    """bench_msm's JSON lines in the JAX script's order: the card, field
+    mul (twin, kernel) with rooflines against the card's rate, the inner
+    product, per MSM size the points per second, its roofline and a passing
+    split-half check, then the proof latencies."""
+    recs = [json.loads(ln) for ln in lines]
+    if recs[0].get("backend") != "cuda":
+        raise AssertionError(f"bench_msm ran on {recs[0]}")
+    want = ["field_mul_plain_throughput", "field_mul",
+            "field_mul_kernel_throughput", "field_mul",
+            "field_inner_product_kernel"]
+    for e in exps:
+        want += [f"msm_points_per_sec_2e{e}", f"msm_2e{e}",
+                 f"msm_split_half_2e{e}"]
+    want += BENCH_PROOF_METRICS
+    got = [r.get("metric") or r.get("roofline") or r.get("check")
+           for r in recs[1:]]
+    if got != want:
+        raise AssertionError(f"bench_msm printed {got}, expected {want}")
+    for r in recs[1:]:
+        if "check" in r and r["ok"] is not True:
+            raise AssertionError(f"bench_msm check failed: {r}")
+        if "roofline" in r and not r["speed_of_light_per_sec"]:
+            raise AssertionError(f"roofline without the card's rate: {r}")
+        if "metric" in r and not r["value"] > 0:
+            raise AssertionError(f"bench_msm metric not positive: {r}")
+
+
+def check_bench_record(lines) -> None:
+    """bench.py's one JSON line with the headline and the extras."""
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines, not 1")
+    rec = json.loads(lines[0])
+    if rec.get("metric") != BENCH_KEYS[0] or not rec["value"] > 0:
+        raise AssertionError(f"bench headline: {rec}")
+    missing = [k for k in BENCH_KEYS[1:] if not rec.get(k)]
+    if missing or "vs_baseline" in rec:
+        raise AssertionError(f"bench record {rec}: missing {missing}")
+
+
+def run_benchmarks(card: str) -> dict:
+    """Phase 9: each of BENCH_RUNS as its own process from the checkout's
+    root; each must exit 0 and print its lines with every check passed.
+    Returns label -> seconds."""
+    secs = {}
+    for label, args, exps in BENCH_RUNS:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *args], cwd=REPO,
+                             env=dict(os.environ, BP_PLATFORM="cuda"),
+                             capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT_S)
+        secs[label] = time.perf_counter() - t0
+        lines = out.stdout.splitlines()
+        for ln in lines:
+            log(f"[{card}] bench | {label} | {ln}")
+        if out.returncode != 0:
+            raise AssertionError(f"{label}: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        if exps is None:
+            check_bench_record(lines)
+        else:
+            check_bench_msm_lines(lines, exps)
+        log(f"bench {label}: exit 0, every check passed, "
+            f"{secs[label]:.1f} s")
+    return secs
+
+
+def bench_in_process() -> bool:
+    """``cli.main(["--benchmark"])`` in this process (its lines checked as
+    the process's are), for the counted run."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--benchmark"])
+    check_bench_msm_lines(buf.getvalue().splitlines(), (16,))
+    return rc == 0
+
+
+# --- 10. timing -------------------------------------------------------------
 def wall_median_s(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -1092,7 +1249,7 @@ def main() -> int:
 
 
 def run(dev, card: str, rate: float) -> dict:
-    """Phases 3 to 9 on `dev`; returns the per-kernel record."""
+    """Phases 3 to 10 on `dev`; returns the per-kernel record."""
     t_start = time.perf_counter()
     reset_counts()
     kern = check_kernels(dev, rate)
@@ -1131,6 +1288,8 @@ def run(dev, card: str, rate: float) -> dict:
     host_proof, bench = check_host(gens)
     log(f"[time] CLI and host protocol checked at "
         f"{time.perf_counter() - t_start:.0f} s")
+    run_benchmarks(card)
+    log(f"[time] benchmarks checked at {time.perf_counter() - t_start:.0f} s")
 
     # the main paths, counted: counters set to 0 before each, read after it
     verify_kernels = VERIFY_KERNELS + ["ge_ladder_win"]
@@ -1174,6 +1333,8 @@ def run(dev, card: str, rate: float) -> dict:
     paths.append((f"the CLI at --range-bits {N_BITS}",
                   lambda: bool(run_cli(CLI_RUNS[1])), CLI_KERNELS,
                   other + list(NO_PATH)))
+    paths.append(("the bench, cli.main(['--benchmark'])", bench_in_process,
+                  BENCH_KERNELS, other + list(NO_PATH)))
     launches = {k: 0 for k in counts()}
     for got in prove_counts + [counted(*path) for path in paths]:
         for k, v in got.items():

@@ -15,7 +15,9 @@ and output lines, on the card.
 Runs on the card (``cuda``), or on the CPU with ``BP_PLATFORM=cpu``; with
 no card and no ``BP_PLATFORM=cpu`` it raises, it never falls back.  The
 last line is ``{"all_tests": "SUCCESS"}`` (exit 0) or ``"FAILED"`` (exit 1).
-``--benchmark`` exits 2: the port has no benchmark script yet.
+``--benchmark`` runs the port's benchmark suite
+(``benchmarks/bench_msm.py``, as a ``__main__`` module) and returns its exit
+status.
 """
 from __future__ import annotations
 
@@ -140,22 +142,39 @@ def field_microbench(count: int = 10_000) -> None:
         print(f"Batch field {name:6s}: {t:.6f} s  ({count / t:,.0f} op/s)")
 
 
+BENCH_MODULE = f"{__package__}.benchmarks.bench_msm"
+
+
+def run_benchmark() -> int:
+    """``bench_msm`` with no arguments, run as ``__main__`` (``runpy``), as
+    the JAX CLI runs its ``benchmarks/bench_msm.py``; its exit status."""
+    import runpy
+    argv = sys.argv
+    sys.argv = [BENCH_MODULE]
+    try:
+        runpy.run_module(BENCH_MODULE, run_name="__main__", alter_sys=True)
+    except SystemExit as done:
+        return done.code if isinstance(done.code, int) else (
+            0 if done.code is None else 1)
+    finally:
+        sys.argv = argv
+    return 0
+
+
 def main(argv=None) -> int:
     from . import config
 
     ap = argparse.ArgumentParser(prog="cudabulletproof_tpu_torch",
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--benchmark", action="store_true",
-                    help="not in the port yet: exits 2")
+                    help="run the benchmark suite (benchmarks/bench_msm.py)")
     ap.add_argument("--range-bits", type=int, default=config.DEFAULT_RANGE_BITS)
     ap.add_argument("--value", type=int, default=42)
     ap.add_argument("--skip-microbench", action="store_true")
     args = ap.parse_args(argv)
 
     if args.benchmark:
-        print("--benchmark: the port has no benchmark script yet",
-              file=sys.stderr)
-        return 2
+        return run_benchmark()
 
     ok = positive_test(args.range_bits, args.value)
     ok = negative_test(args.range_bits) and ok

@@ -6,6 +6,10 @@
 //   fe_invert_kernel   replaces pallas_field.py::_invert_kernel
 //   fe_add3_kernel     replaces pallas_field.py::_add_kernel
 //   fe_sub3_kernel     replaces pallas_field.py::_sub_kernel
+//   fe_inner_product_kernel replaces pallas_field.py::_inner_product_kernel
+//                      (bp_fe_inner_product) and
+//                      _inner_product_batched_kernel
+//                      (bp_fe_inner_product_batched)
 //
 // Layout: rows of 20 int32 limbs, [n, 20] row-major, as the port's public
 // functions hold them (the Pallas kernels transposed to [20, n] tiles to put
@@ -31,6 +35,28 @@
 // in-kernel _fadd / _fsub do: the same value mod p, other limbs.  With ~100
 // integer operations against 240 bytes an element they are bound by memory
 // traffic, and at the CLI's 10,000 elements (2.4 MB) by the launch.
+//
+// fe_inner_product computes the Pallas kernels' partial sums of <a, b>:
+// for [B, n, 20] operands, zero-padded to tiles of 256 elements, a
+// [B, 39, 256] int32 block where tile t adds the sums over its elements of
+// lo = c_k & MASK into column t % 128 and of hi = c_k >> 13 into column
+// 128 + t % 128 (c_k the element's k-th convolution coefficient, < 2^31).
+// The split is per element and before any sum, and the partition into
+// columns is the Pallas grid's, so the torch glue after it (the column
+// combine and the fold, ops/field.py::ip_combine) gives the JAX package's
+// limbs.  Design: a block of 256 threads is one tile of one batch row (grid
+// (tiles, B): the Pallas grid's sequential tile axis becomes parallel
+// blocks); each thread forms its element's 39 coefficients in registers
+// (400 IMADs), splits them, and the block reduces the 78 values with warp
+// shuffles and then shared memory; 78 threads add the tile's sums into the
+// partial with integer atomicAdd (the wrapper zeroes it).  Integer sums are
+// exact, so the result is the same in every run whatever the order.  What
+// bounds it: 160 bytes read an element against 400 IMADs, so at the
+// card's rates memory traffic (3.1 us at 2^16 elements) over the multiplies
+// (1.6 us); the 390 shuffles a thread and the launch come on top.
+// Bounds: a coefficient < 20 * 8799^2 < 2^31; a tile's lo sum < 2^21 and hi
+// sum < 2^26; at n <= 2^17 (the wrapper's limit) a column takes at most 4
+// tiles, < 2^28.
 //
 // C interface: each entry takes device pointers, the count n and a
 // cudaStream_t (PyTorch's current stream), launches without synchronizing
@@ -105,6 +131,61 @@ __global__ void fe_sub3_kernel(const int32_t* __restrict__ a,
   bp::fe_store(out + i * bp::FE_L, r);
 }
 
+constexpr int kIpLanes = 256;     // elements a tile (one block)
+constexpr int kIpColumns = 128;   // partial columns; tile t -> t % 128
+constexpr int kIpWarps = kIpLanes / 32;
+
+__global__ void __launch_bounds__(kIpLanes)
+fe_inner_product_kernel(const int32_t* __restrict__ a,
+                        const int32_t* __restrict__ b,
+                        int32_t* __restrict__ partial, int64_t n) {
+  __shared__ int32_t red[kIpWarps][2 * bp::FE_NC];
+  const int64_t row = blockIdx.y;
+  const int64_t tile = blockIdx.x;
+  const int64_t e = tile * kIpLanes + threadIdx.x;
+  int32_t c[bp::FE_NC];
+#pragma unroll
+  for (int k = 0; k < bp::FE_NC; ++k) c[k] = 0;
+  if (e < n) {
+    const bp::fe x = bp::fe_load(a + (row * n + e) * bp::FE_L);
+    const bp::fe y = bp::fe_load(b + (row * n + e) * bp::FE_L);
+#pragma unroll
+    for (int i = 0; i < bp::FE_L; ++i) {
+#pragma unroll
+      for (int j = 0; j < bp::FE_L; ++j) c[i + j] += x.v[i] * y.v[j];
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < bp::FE_NC; ++k) {
+    int32_t lo = c[k] & bp::FE_MASK;
+    int32_t hi = c[k] >> bp::FE_W;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo += __shfl_down_sync(0xffffffffu, lo, off);
+      hi += __shfl_down_sync(0xffffffffu, hi, off);
+    }
+    if (lane == 0) {
+      red[warp][k] = lo;
+      red[warp][bp::FE_NC + k] = hi;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * bp::FE_NC) {
+    const int k = threadIdx.x;
+    int32_t s = 0;
+#pragma unroll
+    for (int w = 0; w < kIpWarps; ++w) s += red[w][k];
+    const bool is_hi = k >= bp::FE_NC;
+    const int coeff = is_hi ? k - bp::FE_NC : k;
+    const int col = static_cast<int>(tile % kIpColumns) +
+                    (is_hi ? kIpColumns : 0);
+    atomicAdd(partial + (row * bp::FE_NC + coeff) * (2 * kIpColumns) + col,
+              s);
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -157,4 +238,24 @@ extern "C" int bp_fe_sub(const int32_t* a, const int32_t* b, int32_t* out,
   fe_sub3_kernel<<<blocks_for(n), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// partial [B, 39, 256] must hold zeros; a, b are [B, n, 20].
+extern "C" int bp_fe_inner_product_batched(const int32_t* a, const int32_t* b,
+                                           int32_t* partial, int64_t rows,
+                                           int64_t n, void* stream) {
+  if (rows <= 0) return 0;
+  const int64_t tiles = n > 0 ? (n + kIpLanes - 1) / kIpLanes : 1;
+  const dim3 grid(static_cast<unsigned int>(tiles),
+                  static_cast<unsigned int>(rows));
+  fe_inner_product_kernel<<<grid, kIpLanes, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a, b,
+                                                                  partial, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The single inner product: the same kernel on one batch row.
+extern "C" int bp_fe_inner_product(const int32_t* a, const int32_t* b,
+                                   int32_t* partial, int64_t n, void* stream) {
+  return bp_fe_inner_product_batched(a, b, partial, 1, n, stream);
 }

@@ -302,6 +302,14 @@ def is_identity(p: GE) -> torch.Tensor:
     return F.is_zero(p.x) & F.eq(p.y, p.z)
 
 
+def eq(p: GE, q: GE) -> torch.Tensor:
+    """Exact projective equality over the batch dims (the JAX package's
+    ``curve.eq`` :326): X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
+    ex = F.eq(F.mul(p.x, q.z), F.mul(q.x, p.z))
+    ey = F.eq(F.mul(p.y, q.z), F.mul(q.y, p.z))
+    return ex & ey
+
+
 def mul8(p: GE) -> GE:
     """[8]P by three doublings (cofactor clearing)."""
     return double(double(double(p)))

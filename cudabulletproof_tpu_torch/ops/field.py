@@ -360,3 +360,108 @@ def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:
     return torch.all(canonical(a) == 0, dim=-1)
+
+
+# --- inner products (pallas_field.inner_product / inner_product_batched) ----
+IP_LANES = 256               # elements a tile (the Pallas kernels' LANES)
+IP_COLUMNS = 128             # partial columns; tile t adds into t % 128
+IP_MAX = 1 << 17             # the column sums stay below 2^31 up to here
+_IP_CHUNK_TILES = 32         # tiles a step of the twin (bounds its memory)
+
+
+def _ip_operands(a: torch.Tensor, b: torch.Tensor):
+    """Check [B, n, 20] x [B, n, 20] with n <= IP_MAX; returns n."""
+    if a.shape != b.shape or a.dim() != 3 or a.shape[-1] != L:
+        raise ValueError(f"inner product of {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}: needs two [B, n, {L}]")
+    n = a.shape[1]
+    if n > IP_MAX:
+        raise ValueError(f"inner product of {n} elements: at most {IP_MAX} "
+                         "keep the int32 column sums exact")
+    return n
+
+
+def ip_partial_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fe_inner_product kernels: [B, n, 20] x [B, n, 20]
+    -> the Pallas kernels' partial [B, 39, 256].  Elements are zero-padded
+    to tiles of 256; for each element the 39 convolution coefficients are
+    split into lo = c & MASK and hi = c >> 13, each summed over its tile;
+    tile t adds its lo sums into column t % 128 and its hi sums into column
+    128 + t % 128.  Integer sums, so the order does not change the limbs."""
+    n = _ip_operands(a, b)
+    B = a.shape[0]
+    nt = max(1, -(-n // IP_LANES))
+    cols = -(-nt // IP_COLUMNS) * IP_COLUMNS
+    pad = cols * IP_LANES - n
+    a = tnf.pad(a, (0, 0, 0, pad)).reshape(B, cols, IP_LANES, L)
+    b = tnf.pad(b, (0, 0, 0, pad)).reshape(B, cols, IP_LANES, L)
+    lo = torch.zeros((B, cols, 2 * L - 1), dtype=DTYPE, device=a.device)
+    hi = torch.zeros_like(lo)
+    for t in range(0, nt, _IP_CHUNK_TILES):
+        c = limb_conv(a[:, t:t + _IP_CHUNK_TILES],
+                      b[:, t:t + _IP_CHUNK_TILES])    # [B, tiles, 256, 39]
+        lo[:, t:t + _IP_CHUNK_TILES] = (c & MASK).sum(dim=2, dtype=DTYPE)
+        hi[:, t:t + _IP_CHUNK_TILES] = (c >> W).sum(dim=2, dtype=DTYPE)
+    lo = lo.reshape(B, -1, IP_COLUMNS, 2 * L - 1).sum(dim=1, dtype=DTYPE)
+    hi = hi.reshape(B, -1, IP_COLUMNS, 2 * L - 1).sum(dim=1, dtype=DTYPE)
+    return torch.cat([lo, hi], dim=1).transpose(1, 2).contiguous()
+
+
+def fold_wide(acc: torch.Tensor) -> torch.Tensor:
+    """[..., m] coefficients -> [..., 20], the JAX package's ``_fold_wide``
+    (pallas_field.py:88): while more than 20 remain, coefficient 20+j folds
+    x608 into j (its low 13 bits) and j+1 (the rest); 41 coefficients take
+    two rounds (41 -> 22 -> 20).  No relaxation."""
+    while acc.shape[-1] > L:
+        main, top = acc[..., :L], acc[..., L:]
+        k = top.shape[-1]
+        wn = max(L, k + 1)
+        acc = (tnf.pad(main, (0, wn - L))
+               + tnf.pad(FOLD * (top & MASK), (0, wn - k))
+               + tnf.pad(FOLD * (top >> W), (1, wn - k - 1)))
+    return acc
+
+
+def ip_combine(partial: torch.Tensor) -> torch.Tensor:
+    """The partial [B, 39, 256] -> [B, 20] weak limbs, the glue of the JAX
+    package's ``inner_product`` (pallas_field.py:315-326): the lo columns
+    summed at their coefficient, each hi column split again, its low 13
+    bits one limb up and the rest two up, into 41 coefficients; then
+    ``fold_wide`` and ``normalize_weak``."""
+    s0 = partial[..., :IP_COLUMNS].sum(dim=-1, dtype=DTYPE)
+    s_hi = partial[..., IP_COLUMNS:]
+    h0 = (s_hi & MASK).sum(dim=-1, dtype=DTYPE)
+    h1 = (s_hi >> W).sum(dim=-1, dtype=DTYPE)
+    t = tnf.pad(s0, (0, 2)) + tnf.pad(h0, (1, 1)) + tnf.pad(h1, (2, 0))
+    return normalize_weak(fold_wide(t))
+
+
+def inner_product_batched_plain(a: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``inner_product_batched``: [B, n, 20] -> [B, 20]."""
+    return ip_combine(ip_partial_plain(a, b))
+
+
+def inner_product_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``inner_product``: [n, 20] x [n, 20] -> [20]."""
+    return inner_product_batched_plain(a[None], b[None])[0]
+
+
+def inner_product_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B inner products <a_i, b_i> mod p: [B, n, 20] x [B, n, 20] -> [B, 20]
+    weak limbs, the JAX package's ``pallas_field.inner_product_batched``
+    limb for limb.  n <= 2^17 (ValueError above)."""
+    if _on_cpu(a, b):
+        return inner_product_batched_plain(a, b)
+    _ip_operands(a, b)
+    return ip_combine(cuda_field.inner_product_partial(a, b, batched=True))
+
+
+def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> mod p: [n, 20] x [n, 20] -> [20] weak limbs, the JAX
+    package's ``pallas_field.inner_product`` limb for limb.  n <= 2^17."""
+    if _on_cpu(a, b):
+        return inner_product_plain(a, b)
+    _ip_operands(a[None], b[None])
+    return ip_combine(cuda_field.inner_product_partial(a[None], b[None],
+                                                       batched=False))[0]

@@ -46,6 +46,9 @@ SIGNATURES = {
     "bp_fe_invert": [_P, _P, _N, _P],           # a, out, n, stream
     "bp_fe_add": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
     "bp_fe_sub": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
+    "bp_fe_inner_product": [_P, _P, _P, _N, _P],  # a, b, partial, n, stream
+    # a, b, partial, rows, n, stream
+    "bp_fe_inner_product_batched": [_P, _P, _P, _N, _N, _P],
     "bp_ge_reduce": [_P, _P, _N, _P],           # p, out, n, stream
     # pre, dg, part, out, n, nw, w, threads, slices, stream
     "bp_ge_bucket_accum": [_P, _P, _P, _P, _N, _N, _N, _N, _N, _P],

@@ -7,6 +7,7 @@ The JAX CLI itself is not run here (its prover and verifier compile for
 minutes on the CPU); its output lines are read from its source, and the
 port's lines must contain them.
 """
+import importlib.util
 import inspect
 import json
 import os
@@ -84,10 +85,27 @@ def test_main_success_and_flags(capsys):
     assert "Prover refused out-of-range value: FAILED (CORRECT)" in out
     assert json.loads(out[-1]) == {"all_tests": "SUCCESS"}
     assert not any("microbenchmarks" in ln for ln in out)
-    assert cli.main(["--benchmark"]) == 2
-    assert "no benchmark script" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["--range-bits", "x"])
+
+
+def test_benchmark_runs_the_ports_bench(monkeypatch):
+    """``--benchmark`` runs the port's ``benchmarks/bench_msm.py`` as
+    ``__main__`` with no arguments of its own (as the JAX CLI runs its
+    bench_msm.py) and returns its exit status; sys.argv is restored."""
+    calls = []
+
+    def fake_run(name, run_name, alter_sys):
+        calls.append((name, run_name, list(sys.argv)))
+        raise SystemExit(3 if len(calls) == 1 else None)
+    monkeypatch.setattr("runpy.run_module", fake_run)
+    argv = list(sys.argv)
+    assert cli.main(["--benchmark"]) == 3
+    assert cli.main(["--benchmark", "--range-bits", "8"]) == 0
+    assert sys.argv == argv
+    mod = "cudabulletproof_tpu_torch.benchmarks.bench_msm"
+    assert calls == [(mod, "__main__", [mod])] * 2
+    assert importlib.util.find_spec(mod) is not None
 
 
 def test_main_failure_exits_1(capsys, monkeypatch):

@@ -123,7 +123,8 @@ def test_add_sub_kernels_contract(dev):
     cuda_field.sub(a, a)
     assert {k: cuda_field.launches[k] - before[k] for k in before} == {
         "fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0,
-        "fe_add": 1, "fe_sub": 1}
+        "fe_add": 1, "fe_sub": 1, "fe_inner_product": 0,
+        "fe_inner_product_batched": 0}
 
 
 def test_field_broadcast_and_strides(dev):
@@ -326,7 +327,8 @@ def test_launch_counts_and_refusals(dev):
     assert {k: cuda_field.launches[k] - field_before[k]
             for k in field_before} == {
         "fe_mul": 1, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 1,
-        "fe_add": 1, "fe_sub": 1}
+        "fe_add": 1, "fe_sub": 1, "fe_inner_product": 0,
+        "fe_inner_product_batched": 0}
     with pytest.raises(ValueError):
         cuda_curve.bucket_accum(pre, dg, 3, 32, 1)        # w outside 4..8
     with pytest.raises(ValueError):
@@ -560,3 +562,87 @@ def test_cli_on_card(dev, monkeypatch, capsys):
     assert all(cuda_field.launches[k] > before[k]
                for k in ("fe_add", "fe_mul", "fe_sq"))
     assert cuda_field.launches["fe_sub"] == before["fe_sub"]
+
+
+def _ip_operands(rng, shape, dev):
+    """Random weak limbs [*shape, 20] with all-8799, all-8191, 0, 1 and
+    p - 1 rows at random places of every row of elements."""
+    x = rng.integers(0, TF.BOUND + 1, size=shape + (20,), dtype=np.int32)
+    edges = np.array([[TF.BOUND] * 20, [0x1FFF] * 20, _raw(0), _raw(1),
+                      _raw(TF.P - 1)], dtype=np.int32)
+    n = shape[-1]
+    for row in x.reshape(-1, n, 20):
+        k = min(n, len(edges))
+        row[rng.choice(n, size=k, replace=False)] = edges[:k]
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 257, 32_768 + 300, 1 << 17])
+def test_inner_product_kernel_equals_twin(dev, n):
+    """fe_inner_product: the partial [1, 39, 256] and the limbs equal the
+    twin's, exactly; field.inner_product takes the kernel (one launch);
+    the value is <a, b> mod p."""
+    rng = np.random.default_rng(n)
+    a, b = _ip_operands(rng, (1, n), dev), _ip_operands(rng, (1, n), dev)
+    before = cuda_field.launches["fe_inner_product"]
+    part = cuda_field.inner_product_partial(a, b, batched=False)
+    assert torch.equal(part, TF.ip_partial_plain(a, b))
+    got = TF.inner_product(a[0], b[0])
+    assert torch.equal(got, TF.inner_product_plain(a[0], b[0]))
+    assert cuda_field.launches["fe_inner_product"] == before + 2
+    if n <= 257:
+        va, vb = TF.to_ints(a[0]), TF.to_ints(b[0])
+        want = sum(x * y for x, y in zip(va, vb)) % TF.P
+        assert TF.to_ints(got[None])[0] % TF.P == want
+
+
+@pytest.mark.parametrize("rows,n", [(1, 300), (3, 300), (16, 4096)])
+def test_inner_product_batched_kernel_equals_twin(dev, rows, n):
+    rng = np.random.default_rng(rows * n)
+    a, b = _ip_operands(rng, (rows, n), dev), _ip_operands(rng, (rows, n), dev)
+    before = cuda_field.launches["fe_inner_product_batched"]
+    part = cuda_field.inner_product_partial(a, b, batched=True)
+    assert torch.equal(part, TF.ip_partial_plain(a, b))
+    got = TF.inner_product_batched(a, b)
+    assert torch.equal(got, TF.inner_product_batched_plain(a, b))
+    assert cuda_field.launches["fe_inner_product_batched"] == before + 2
+    if rows > 1:
+        with pytest.raises(ValueError, match="one row"):
+            cuda_field.inner_product_partial(a, b, batched=False)
+
+
+def test_aggregate_on_card_matches_jax_fixture(dev):
+    """aggregate.prove on the card writes the JAX package's blob at
+    (n, m) = (8, 2); verify accepts it and rejects t_hat + 1."""
+    import dataclasses
+
+    import make_agg_golden as agg_golden
+    from cudabulletproof_tpu_torch.models import aggregate as TA
+    with np.load(agg_golden.golden_path(8, 2)) as f:
+        ref = {k: f[k] for k in f.files}
+    gens = get_generators(16, dev)
+    feed = iter(agg_golden.from_rows(ref["rand"]))
+    proof = TA.prove(agg_golden.from_rows(ref["values"]),
+                     agg_golden.from_rows(ref["blindings"]), 8, gens,
+                     rand=lambda: next(feed))
+    assert serialization.serialize_aggregated_proof(proof) == \
+        ref["blob"].tobytes()
+    assert TA.verify(proof, gens)
+    assert not TA.verify(dataclasses.replace(
+        proof, t_hat=(proof.t_hat + 1) % oracle.ELL), gens)
+
+
+def test_bench_on_card(dev, capsys):
+    """bench_msm's field and MSM parts on the card at small sizes: the
+    kernel lines, rooflines against the card's rate, the split-half check."""
+    import json
+
+    from cudabulletproof_tpu_torch.benchmarks import bench_msm as BM
+    from cudabulletproof_tpu_torch.utils import profiling
+    rate = profiling.device_rate(dev)
+    BM.bench_field(dev, n=4096, iters=2, rate=rate)
+    BM.bench_msm(dev, [4096], iters=1, rate=rate)
+    out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert out[-1] == {"check": "msm_split_half_2e12", "ok": True}
+    assert all(o["speed_of_light_per_sec"] > 0 for o in out
+               if "roofline" in o)

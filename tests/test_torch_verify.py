@@ -1,9 +1,11 @@
 """The port's verify path (models/fused.py) against the JAX package.
 
-Proofs come from the native C++ prover (``native.prove_range``), at n = 4 and
-8 as the JAX suite's own ``tests/test_fused.py`` runs on the CPU; both
-packages get the same generator table (``from_jax_pack``) and the same
-random-linear-combination weights.  Held exactly:
+Proofs are native C++ proofs (``native.prove_range``) at n = 4 and 8, as
+the JAX suite's own ``tests/test_fused.py`` runs on the CPU, committed with
+the JAX package's results on them in ``tests/golden/verify_n{4,8}.npz``
+(written by ``tests/make_verify_golden.py``); both packages get the same
+generator table (``from_jax_pack``) and the same random-linear-combination
+weights.  Held exactly:
 
 * the verify-parts outputs (valid flag, RLC scalar vector, decompressed
   points) against ``fused._verify_parts_fn(n)`` per proof, limb for limb;
@@ -11,38 +13,32 @@ random-linear-combination weights.  Held exactly:
   verdict and ``native.verify_range``.  The JAX verdict is the body of
   ``fused._verify_fn`` / ``_batch_verify_merged_fn`` on the outputs of
   ``_verify_parts_fn`` (``_assemble_bases``, ``sum_mod``), with the final MSM
-  evaluated by the python-int oracle: ``fused.verify`` itself compiles its
-  Pallas-interpret ladder into the program, 4 min (n = 4) and 8 min (n = 8)
-  of XLA:CPU compile on one core.  Malformed proofs, which ``fused.verify``
-  refuses before it compiles anything, go through ``fused.verify`` itself;
+  evaluated by the python-int oracle; at n = 4 also the verdicts of the JAX
+  package's ``fused.verify`` and ``fused.batch_verify`` themselves on the
+  same honest, tampered, small-order and non-canonical proofs.  Malformed
+  proofs, which ``fused.verify`` refuses before it compiles anything, go
+  through ``fused.verify`` itself;
 * the wire format against ``utils/serialization.py``, byte for byte.
 
-The parts program runs in one child process per n and test run, configured
-by ``tests/conftest.py`` (``_jax_reference``): its XLA:CPU executable holds
-about 2 GB, which would otherwise stay in the test worker, beside the JAX
-suite's own executables, for the rest of the session.  The child takes the
-inputs of all three JAX comparisons at its n, so the program compiles once
-per n; under xdist the proofs and the child's outputs are shared between
-workers through files in the run's temporary directory.
+The parts program compiles for ~100 s per n on the CPU, ``fused.verify``
+for minutes, so tier-1 reads the fixtures; the ``slow`` test reruns
+``make_verify_golden.py`` on the committed proofs and compares.
 """
 import dataclasses
 import fcntl
-import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import make_verify_golden as golden
 from cudabulletproof_tpu.models import fused as JFU, ipa as JIPA
 from cudabulletproof_tpu.models import rangeproof as JRP
 from cudabulletproof_tpu.models.generators import get_generators as jax_gens
-from cudabulletproof_tpu.ops import curve as JC, scalar_field as JS
 from cudabulletproof_tpu.utils import native, oracle
 from cudabulletproof_tpu.utils import serialization as JSER
 from cudabulletproof_tpu_torch.models import fused as TFU
@@ -61,18 +57,9 @@ pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")
 
 
-def _tamper(proof) -> dict:
-    tor = oracle.small_order_points()
-    ip = proof.ip
-    return {
-        "t_hat+1": dataclasses.replace(proof, t_hat=(proof.t_hat + 1) % ELL),
-        "V=A": dataclasses.replace(proof, V=proof.A),
-        "ip.a*2": dataclasses.replace(
-            proof, ip=dataclasses.replace(ip, a=ip.a * 2 % ELL)),
-        "A small order": dataclasses.replace(proof, A=tor[1].compress()),
-        "S non-canonical": dataclasses.replace(
-            proof, S=(oracle.P + 1).to_bytes(32, "little")),
-    }
+def _load(path: Path) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
 
 
 def _run_dir(tmp_path_factory) -> Path:
@@ -84,7 +71,8 @@ def _run_dir(tmp_path_factory) -> Path:
 def _shared(root: Path, name: str, make) -> dict:
     """The arrays ``make()`` returns, made once per test run: the first
     worker to get here makes and saves them, the others wait on the lock
-    and read the file."""
+    and read the file (``tests/test_torch_msm.py`` shares its JAX results
+    so)."""
     path = root / f"{name}.npz"
     with open(root / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -92,45 +80,25 @@ def _shared(root: Path, name: str, make) -> dict:
             tmp = root / f"{name}.part.npz"
             np.savez(tmp, **make())
             os.replace(tmp, path)
-    with np.load(path) as f:
-        return {k: f[k] for k in f.files}
-
-
-def _make_proofs() -> dict:
-    """Native proofs per n (values and blindings from a seeded numpy rng;
-    the prover draws its own nonces, hence made once and shared)."""
-    rng = np.random.default_rng(64)
-    out = {}
-    for n in (4, 8):
-        values = [0, (1 << n) - 1, int(rng.integers(0, 1 << n))]
-        out[f"n{n}"] = np.stack([np.frombuffer(native.prove_range(
-            v, int.from_bytes(rng.bytes(32), "little"), n), dtype=np.uint8)
-            for v in values])
-    return out
+    return _load(path)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def setup(tmp_path_factory):
+def setup():
     """Per n: the JAX generators and packed table, the port's generators
-    from that table, and the run's native proofs."""
+    from that table, the committed native proofs and the JAX results."""
     torch.set_num_threads(1)
-    root = _run_dir(tmp_path_factory)
-    made = _shared(root, "torch_verify_proofs", _make_proofs)
-    out = {"root": root}
-    for n in (4, 8):
+    out = {}
+    for n in golden.SIZES:
         jg = jax_gens(n)
         pack = np.asarray(JFU._gens_pack(jg, n))
-        blobs = [row.tobytes() for row in made[f"n{n}"]]
+        ref = _load(golden.golden_path(n))
+        blobs = [row.tobytes() for row in ref["proofs"]]
         out[n] = dict(jax_gens=jg, pack=pack,
                       gens=TG.from_jax_pack(pack, n, device="cpu"),
-                      blobs=blobs,
+                      blobs=blobs, ref=ref,
                       proofs=[TSER.deserialize_range_proof(b) for b in blobs])
     return out
-
-
-def _rnd(rng, count):
-    return [int.from_bytes(rng.bytes(32), "little") % (ELL - 1) + 1
-            for _ in range(2 * count)]
 
 
 def _jax_proof(proof):
@@ -140,120 +108,25 @@ def _jax_proof(proof):
     return JRP.RangeProof(**fields)
 
 
-def _jax_blob(proof) -> np.ndarray:
-    """The JAX package's device blob of the same proof."""
-    return JFU._proof_blob(_jax_proof(proof))
-
-
-def _pairs(ints) -> list:
-    return [ints[i:i + 2] for i in range(0, len(ints), 2)]
-
-
 def _cases(s, n) -> dict:
-    """The inputs of the three JAX comparisons at n, weights from seeded
-    numpy rngs.  ``parts``: honest, tampered, small-order and non-canonical
-    proofs as one batch.  ``verdicts``: 3 honest and 5 tampered proofs, one
-    at a time.  ``batches``: 3 honest proofs merged, then the same with one
-    tampered."""
-    bad = _tamper(s["proofs"][0])
-    parts = [s["proofs"][1], bad["t_hat+1"], bad["A small order"],
-             bad["S non-canonical"]]
-    verdicts = list(s["proofs"]) + list(bad.values())
-    rng = np.random.default_rng(100 + n)
-    good = s["proofs"]
-    sunk = good[:2] + [dataclasses.replace(good[2], mu=(good[2].mu + 1) % ELL)]
-    brng = np.random.default_rng(200 + n)
-    return {"parts": (parts, _rnd(np.random.default_rng(n), len(parts))),
-            "verdicts": (verdicts, [_rnd(rng, 1) for _ in verdicts]),
-            "batches": ([(good, True), (sunk, False)],
-                        [_rnd(brng, 3) for _ in range(2)])}
+    return golden.cases(s["proofs"], n)
 
 
-def _jax_verdict(n, pack, outs) -> bool:
-    """The JAX package's single (one proof) or merged-batch verdict on its
-    parts outputs: its base and scalar assembly, the MSM by the oracle, then
-    the cofactor-8 identity check."""
-    valid = all(bool(o[0]) for o in outs)
-    sc = jnp.stack([o[1] for o in outs])
-    pts = JC.GE(*(jnp.stack([o[2][c] for o in outs]) for c in range(4)))
-    if len(outs) == 1:
-        scal = sc[0]
-    else:
-        scal = jnp.concatenate([JS.sum_mod(sc[:, :2 * n + 2], axis=0),
-                                sc[:, 2 * n + 2:].reshape(-1, JS.SL)])
-    bases = JC.to_oracle(JFU._assemble_bases(pack, n, pts))
-    acc = oracle.IDENTITY
-    for pt, k in zip(bases, JS.to_ints(JS.canonical(scal))):
-        acc = acc + k * pt
-    return valid and 8 * acc == oracle.IDENTITY
-
-
-def _jax_reference_main(src: str, dst: str) -> None:
-    """Child side of ``_jax_reference``: reads its inputs from ``src`` and
-    writes the parts outputs and verdicts to ``dst``."""
-    jax.config.update("jax_enable_compilation_cache", False)
-    with np.load(src) as f:
-        meta = json.loads(str(f["meta"]))
-        pack, blobs = jnp.asarray(f["pack"]), f["blobs"]
-    n = meta["n"]
-    parts = jax.jit(JFU._verify_parts_fn(n))
-    outs = [parts(jnp.asarray(b), JS.from_ints([int(v) for v in r]), pack)
-            for b, r in zip(blobs, meta["rnd"], strict=True)]
-    np.savez(dst, valid=np.array([bool(o[0]) for o in outs]),
-             scalars=np.stack([np.asarray(o[1]) for o in outs]),
-             pts=np.stack([np.stack([np.asarray(o[2][c]) for o in outs])
-                           for c in range(4)]),
-             verdicts=np.array([_jax_verdict(n, pack, [outs[i] for i in b])
-                                for b in meta["batches"]], dtype=bool))
-
-
-def _jax_reference(s, n) -> dict:
-    """The JAX package on all of ``_cases(s, n)``, once per n and test run,
-    in one child process set up by tests/conftest.py like the JAX suite (CPU
-    backend; its compile cache off): each proof blob with its weight pair
-    through ``fused._verify_parts_fn(n)``, compiled once, then the single
-    and merged-batch verdicts.  Returns, per group of ``_cases``, its slice
-    of ``valid`` [m], ``scalars`` [m, k, SL], ``pts`` [4, m, 20] and
-    ``verdicts``."""
-    cases = _cases(s[n], n)
-    parts, parts_w = cases["parts"]
-    verdicts, verdict_w = cases["verdicts"]
-    batches, batch_w = cases["batches"]
-    blobs = [TFU._proof_blob(p) for p in parts]
-    blobs += [_jax_blob(p) for p in verdicts]
-    blobs += [_jax_blob(p) for batch, _ in batches for p in batch]
-    rnd = (_pairs(parts_w) + verdict_w
-           + [pair for w in batch_w for pair in _pairs(w)])
-    a, b = len(parts), len(parts) + len(verdicts)
-    singles = [(i,) for i in range(a, b)]
-    merged = [tuple(range(b + 3 * j, b + 3 * j + 3)) for j in range(2)]
-
-    def make():
-        root = s["root"]
-        src, dst = root / f"jax_in_n{n}.npz", root / f"jax_out_n{n}.npz"
-        np.savez(src, pack=s[n]["pack"], blobs=np.stack(blobs),
-                 meta=json.dumps({"n": n,
-                                  "rnd": [[str(v) for v in r] for r in rnd],
-                                  "batches": [list(t)
-                                              for t in singles + merged]}))
-        code = ("import sys; sys.path[:0] = [%r, %r]; import conftest; "
-                "import test_torch_verify as t; t._jax_reference_main(%r, %r)"
-                % (str(TESTS), str(REPO), str(src), str(dst)))
-        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                             capture_output=True, text=True, timeout=900)
-        assert out.returncode == 0, out.stderr[-4000:]
-        with np.load(dst) as f:
-            return {k: f[k] for k in f.files}
-
-    ref = _shared(s["root"], f"torch_verify_jax_n{n}", make)
+def _jax_reference(setup, n) -> dict:
+    """The JAX package's results on ``_cases(setup[n], n)`` from the
+    fixture, by group: ``parts`` (``valid`` [m], ``scalars`` [m, k, SL],
+    ``pts`` [4, m, 20]), ``verdicts`` and ``batches``."""
+    ref = setup[n]["ref"]
+    a = len(_cases(setup[n], n)["parts"][0])
+    singles = len(ref["verdicts"]) - 2          # then the two batches
     return {"parts": {"valid": ref["valid"][:a], "scalars": ref["scalars"][:a],
                       "pts": ref["pts"][:, :a]},
-            "verdicts": ref["verdicts"][:len(singles)],
-            "batches": ref["verdicts"][len(singles):]}
+            "verdicts": ref["verdicts"][:singles],
+            "batches": ref["verdicts"][singles:]}
 
 
 def test_generators_match_jax_pack(setup):
-    for n in (4, 8):
+    for n in golden.SIZES:
         s = setup[n]
         assert np.array_equal(s["gens"].table.numpy(), s["pack"])
         assert torch.equal(TG.get_generators(n, device="cpu").table,
@@ -266,7 +139,7 @@ def test_generators_match_jax_pack(setup):
 
 
 def test_wire_format_matches_jax(setup):
-    for n in (4, 8):
+    for n in golden.SIZES:
         for blob, proof in zip(setup[n]["blobs"], setup[n]["proofs"]):
             assert TSER.serialize_range_proof(proof) == blob
             jp = JSER.deserialize_range_proof(blob)
@@ -298,15 +171,42 @@ def test_verify_parts_match_jax(setup, n):
 @pytest.mark.parametrize("n", [4, 8])
 def test_verdicts_match_jax_and_native(setup, n):
     """Honest proofs accepted and every tampered one rejected, by the port,
-    the JAX package and the native verifier alike."""
+    the JAX package and the native verifier alike; at n = 4 the port's
+    verdicts are also those of the JAX package's own ``fused.verify``."""
     s = setup[n]
     cases, weights = _cases(s, n)["verdicts"]
     ref = _jax_reference(setup, n)["verdicts"]
+    got = []
     for proof, ints, jax_verdict in zip(cases, weights, ref, strict=True):
         want = native.verify_range(TSER.serialize_range_proof(proof))
-        assert TFU.verify(proof, s["gens"], rnd=ints) == want
+        got.append(TFU.verify(proof, s["gens"], rnd=ints))
+        assert got[-1] == want
         assert bool(jax_verdict) == want
+    if n == golden.FUSED_N:
+        assert got == s["ref"]["fused_verify"].tolist()
     assert [TFU.verify(p, s["gens"]) for p in s["proofs"]] == [True] * 3
+
+
+def test_verdicts_match_jax_fused_verify(setup):
+    """n = 4: the JAX package's own ``fused.verify`` and
+    ``fused.batch_verify`` (in the fixture, with their own random weights)
+    accept the 3 honest proofs and the honest batch and reject the 5
+    tampered proofs (small order and non-canonical among them) and the
+    sunk batch, as the JAX verdicts taken on the parts outputs and the
+    native verifier do; the port is held to the same verdicts in
+    ``test_verdicts_match_jax_and_native`` and
+    ``test_batch_verify_matches_jax_and_native``."""
+    n = golden.FUSED_N
+    s = setup[n]
+    c = _cases(s, n)
+    ref = _jax_reference(setup, n)
+    fused_verify = s["ref"]["fused_verify"].tolist()
+    fused_batch = s["ref"]["fused_batch"].tolist()
+    assert fused_verify == [True] * 3 + [False] * 5
+    assert fused_verify == ref["verdicts"].tolist()
+    assert fused_verify == [native.verify_range(
+        TSER.serialize_range_proof(p)) for p in c["verdicts"][0]]
+    assert fused_batch == ref["batches"].tolist() == [True, False]
 
 
 def test_malformed_rejected_like_jax(setup):
@@ -327,17 +227,22 @@ def test_malformed_rejected_like_jax(setup):
 @pytest.mark.parametrize("n", [4, 8])
 def test_batch_verify_matches_jax_and_native(setup, n):
     """A merged batch of 3 honest proofs is accepted; one tampered proof
-    sinks the batch; the JAX merged verdict and the native verifier agree."""
+    sinks the batch; the JAX merged verdict and the native verifier agree
+    (at n = 4 also the JAX package's own ``fused.batch_verify``)."""
     s = setup[n]
     cases, weights = _cases(s, n)["batches"]
     ref = _jax_reference(setup, n)["batches"]
+    got = []
     for (batch, want), ints, jax_verdict in zip(cases, weights, ref,
                                                 strict=True):
         natives = [native.verify_range(TSER.serialize_range_proof(p))
                    for p in batch]
         assert all(natives) == want
-        assert TFU.batch_verify(batch, s["gens"], rnd=ints) == want
+        got.append(TFU.batch_verify(batch, s["gens"], rnd=ints))
+        assert got[-1] == want
         assert bool(jax_verdict) == want
+    if n == golden.FUSED_N:
+        assert got == s["ref"]["fused_batch"].tolist()
     assert TFU.batch_verify([]) is True
     assert TFU.batch_verify([setup[4]["proofs"][0],
                              setup[8]["proofs"][0]]) is False
@@ -347,7 +252,7 @@ def test_explicit_weights(setup):
     s = setup[4]
     proof = s["proofs"][2]
     assert TFU.verify(proof, s["gens"], rnd=[1, 2])
-    bad = _tamper(proof)["ip.a*2"]
+    bad = golden.tamper(proof)["ip.a*2"]
     assert not TFU.verify(bad, s["gens"], rnd=[3, 5])
     with pytest.raises(ValueError):
         TFU.verify(proof, s["gens"], rnd=[1])
@@ -355,6 +260,25 @@ def test_explicit_weights(setup):
         TFU.verify(proof, s["gens"], rnd=[ELL, 2])
     with pytest.raises(ValueError):
         TFU.batch_verify(s["proofs"], s["gens"], rnd=[1, 2])
+
+
+@pytest.mark.slow
+def test_verify_fixtures_match_jax_live(tmp_path):
+    """tests/make_verify_golden.py run anew on the committed proofs (the
+    unmodified JAX package) gives the committed fixtures."""
+    code = ("import sys; sys.path[:0] = [%r, %r]; import make_verify_golden "
+            "as g; g.configure_jax(); "
+            "g.write(__import__('pathlib').Path(%r), keep=True)"
+            % (str(TESTS), str(REPO), str(tmp_path)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=5400)
+    assert out.returncode == 0, out.stderr[-4000:]
+    for n in golden.SIZES:
+        live = _load(tmp_path / golden.golden_path(n).name)
+        ref = _load(golden.golden_path(n))
+        assert live.keys() == ref.keys()
+        for key in ref:
+            assert np.array_equal(live[key], ref[key]), (n, key)
 
 
 def _spy_accum(monkeypatch) -> list:
@@ -426,6 +350,9 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for name in ('models.aggregate', 'utils.profiling', 'bench',\n"
+        "             'benchmarks.bench_msm'):\n"
+        "    assert 'cudabulletproof_tpu_torch.' + name in sys.modules, name\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules\n"
         "                                        if k.startswith('jax'))\n"
         "ref = sorted(k for k in sys.modules if k == 'cudabulletproof_tpu'\n"
