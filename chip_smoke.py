@@ -8,7 +8,7 @@ Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once.
-  3. kernels: each of the eighteen kernels against its plain torch twin on
+  3. kernels: each of the twenty-two kernels against its plain torch twin on
      the card, on inputs from a fixed numpy seed at the paths' shapes plus
      edge inputs; equality must be exact, limb for limb (tolerance 0:
      integer arithmetic).  fe_add / fe_sub at 1, 25 (the edge rows),
@@ -32,7 +32,16 @@ Phases, each raising on failure (so the exit code is nonzero):
      median of CUDA-event runs; the bound is the larger of the kernel's
      int32 multiply-adds over the card's IMAD rate and its bytes over the
      HBM rate; the sort kernels' library yardstick is a stable
-     torch.argsort of the same keys.
+     torch.argsort of the same keys.  The radix-2^16 kernels r16_mul and
+     r16_sq at 1, 255, 257 and 2^16 elements (timed) and on every pair of
+     the edge rows (zero, one, p - 1, every limb 2^16 + 38 or 0xFFFF), on
+     random weak limbs in [0, 2^16 + 38]; the chains r16_mul_chain and
+     fe_mul_chain at every (n, reps) of n = 1, 255, 257, 2^16 and reps = 0,
+     1, 64 and on the edge pairs (for fe_mul_chain the 20-limb edge rows,
+     every limb 8799 among them), the last, (2^16, 64), the bench's shape
+     and the one timed; their bound is 548 (radix 16) or 441 (radix 13)
+     IMADs a multiply over the IMAD rate for the chains and r16_mul /
+     r16_sq's 3 / 2 x 64 bytes an element over the HBM rate.
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
@@ -73,20 +82,24 @@ Phases, each raising on failure (so the exit code is nonzero):
      verifier, and a tampered copy must fail all four.
   9. the benchmarks, each its own process: ``python -m
      cudabulletproof_tpu_torch --benchmark``, ``python -m
-     cudabulletproof_tpu_torch.benchmarks.bench_msm --big`` and ``python -m
-     cudabulletproof_tpu_torch.bench``; each must exit 0 and print its
-     lines (echoed with the card's name) with every check passed: the
-     split-half MSM identities at 2^16 and 2^20, every proof accepted, the
-     bench's MSMs exact.
+     cudabulletproof_tpu_torch.benchmarks.bench_msm --big``, ``python -m
+     cudabulletproof_tpu_torch.bench`` and ``python -m
+     cudabulletproof_tpu_torch.benchmarks.bench_radix16``; each must exit 0
+     and print its lines (echoed with the card's name) with every check
+     passed: the split-half MSM identities at 2^16 and 2^20, every proof
+     accepted, the bench's MSMs exact, both multiply chains equal to Python
+     ints (bench_radix16's rates are logged beside their bounds).
  10. the main paths, counted: the launch counters are set to 0 before each
      path (one verify; a batch of 16; batches of 128 and 256; the four
      msm_auto sizes; with the accumulator off msm_auto at 2^16 and 2^20,
      msm_pippenger at 2^16 under MSM_PALLAS_SORT and the batch of 1024;
      phase 7's; the CLI at --range-bits 64; the bench, ``cli.main
-     (["--benchmark"])`` in this process) and read after it; every kernel
-     but fe_sub and fe_inner_product_batched must launch on them (those two
-     have no program path, in the JAX package either: they must launch in
-     phase 3).  Then wall times
+     (["--benchmark"])`` in this process; the radix A/B,
+     ``bench_radix16.main([])`` in this process, which must launch
+     r16_mul_chain and fe_mul_chain and no other kernel) and read after it;
+     every kernel but fe_sub, fe_inner_product_batched, r16_mul and r16_sq
+     must launch on them (those four have no program path, in the JAX
+     package either: they must launch in phase 3).  Then wall times
      (fused.prove under each ladder, median of 3, with fresh randomness:
      the last proof of each must pass the native verifier; the host prover
      at n = 16 and 64, the host verifiers, fused.verify and the native
@@ -106,6 +119,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -120,14 +134,16 @@ import torch
 from cudabulletproof_tpu_torch import cli, config
 from cudabulletproof_tpu_torch.models import fused, rangeproof as RP
 from cudabulletproof_tpu_torch.models.generators import get_generators
-from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field, cuda_sort
+from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
+                                           cuda_radix16, cuda_sort)
 from cudabulletproof_tpu_torch.ops import curve as C, field as F
 from cudabulletproof_tpu_torch.ops import msm as M, pippenger as PP
+from cudabulletproof_tpu_torch.ops import radix16 as R16
 from cudabulletproof_tpu_torch.ops import scalar_field as SC, sort as SO
 from cudabulletproof_tpu_torch.utils import build, native, oracle
 from cudabulletproof_tpu_torch.utils.profiling import (
-    FE_BYTES, IMAD_ADD, IMAD_DBL, IMAD_INNER, IMAD_MADD, IMAD_MUL, IMAD_SQ,
-    PT_BYTES, bound, imad_per_s, smi)
+    FE_BYTES, IMAD_ADD, IMAD_DBL, IMAD_INNER, IMAD_MADD, IMAD_MUL, IMAD_R16,
+    IMAD_SQ, PT_BYTES, R16_BYTES, bound, imad_per_s, smi)
 from cudabulletproof_tpu_torch.utils.serialization import (
     deserialize_range_proof, serialize_range_proof)
 
@@ -178,6 +194,10 @@ ADD_SHAPES = (1, 255, 257, 10_000)
 IP_SHAPES = (1, 255, 256, 257, 10_000, 32_768 + 300, 1 << 17, 1 << 16)
 IP_BATCHED_SHAPES = ((1, 300), (3, 300), (16, 300), (1, 4096), (3, 4096),
                      (16, 4096))
+# the radix-2^16 kernels and both multiply chains: element counts (the
+# last timed) and chain lengths; the bench's (n, reps) is the last case
+R16_SHAPES = (1, 255, 257, 1 << 16)
+CHAIN_REPS = (0, 1, 64)
 # the host-transcript protocol: the JAX package's host prover fixture, the
 # CLI's runs, the host prover's timed sizes
 HOST_GOLDEN = "tests/golden/host_prove_n{}.npz"
@@ -222,6 +242,13 @@ KERNELS = [
      "cudabulletproof_tpu/ops/pallas_field.py:268"),
     ("fe_inner_product_batched", "field_kernels.cu",
      "cudabulletproof_tpu/ops/pallas_field.py:329"),
+    ("r16_mul", "radix16_kernels.cu",
+     "cudabulletproof_tpu/ops/radix16.py:142"),
+    ("r16_sq", "radix16_kernels.cu",
+     "cudabulletproof_tpu/ops/radix16.py:146"),
+    ("r16_mul_chain", "radix16_kernels.cu",
+     "cudabulletproof_tpu/ops/radix16.py:191"),
+    ("fe_mul_chain", "field_kernels.cu", "benchmarks/bench_radix16.py:33"),
 ]
 # kernels that no program path launches, in the JAX package either; each
 # must launch in the kernel phase instead
@@ -229,7 +256,11 @@ NO_PATH = {"fe_sub": "none in the JAX package (only its tests call "
                      "pallas_field.sub)",
            "fe_inner_product_batched": "none in the JAX package (only its "
                                        "tests call "
-                                       "pallas_field.inner_product_batched)"}
+                                       "pallas_field.inner_product_batched)",
+           "r16_mul": "none in the JAX package (only tests/test_radix16.py "
+                      "calls radix16.mul / sq)",
+           "r16_sq": "none in the JAX package (only tests/test_radix16.py "
+                     "calls radix16.mul / sq)"}
 
 
 def log(*args):
@@ -237,14 +268,14 @@ def log(*args):
 
 
 def reset_counts():
-    for mod in (cuda_field, cuda_curve, cuda_sort):
+    for mod in (cuda_field, cuda_curve, cuda_sort, cuda_radix16):
         for k in mod.launches:
             mod.launches[k] = 0
 
 
 def counts() -> dict:
     return {**cuda_field.launches, **cuda_curve.launches,
-            **cuda_sort.launches}
+            **cuda_sort.launches, **cuda_radix16.launches}
 
 
 def accum_off(fn):
@@ -268,6 +299,20 @@ def edge_fe() -> np.ndarray:
             raw_limbs(2), raw_limbs(F.P - 1)]
     rows += [raw_limbs(v) for v in range(F.P, 1 << 255)]      # p .. 2^255-1
     return np.array(rows, dtype=np.int32)
+
+
+def edge_r16() -> np.ndarray:
+    """Radix-2^16 edge rows: 0, 1, p - 1, every limb 2^16 + 38 (the weak
+    bound), every limb 0xFFFF."""
+    rows = [R16.from_int(0), R16.from_int(1), R16.from_int(F.P - 1),
+            [R16.BOUND16] * R16.L16, [R16.MASK16] * R16.L16]
+    return np.array(rows, dtype=np.int32)
+
+
+def edge_pairs(edge: np.ndarray) -> tuple:
+    """(a, b) rows that pair every edge row with every edge row."""
+    k = len(edge)
+    return np.repeat(edge, k, axis=0), np.tile(edge, (k, 1))
 
 
 def edge_points() -> np.ndarray:
@@ -560,6 +605,51 @@ def kernel_cases(rng, dev):
                                 lambda a=a, b=b, k=kern: k(a, b),
                                 lambda a=a, b=b, p=plain: p(a, b),
                                 0, 3 * n * FE_BYTES))
+
+    def with_edges(x, rows):
+        """x with the rows `rows` at random places of its first half (as
+        many as fit; n = 1 stays random)."""
+        k = min(len(x) // 2, len(rows))
+        x[rng.choice(len(x), size=k, replace=False)] = rows[:k]
+        return x
+
+    def rand_r16(n):
+        return rng.integers(0, R16.BOUND16 + 1, size=(n, R16.L16),
+                            dtype=np.int32)
+
+    # the radix-2^16 kernels and both chains: the edge pairs first, the
+    # bench's shape last
+    e16, e13 = edge_r16(), edge_fe()
+    ops16 = [("edge pairs", *edge_pairs(e16))] + [
+        (n, with_edges(rand_r16(n), e16), with_edges(rand_r16(n), e16[::-1]))
+        for n in R16_SHAPES]
+    ops13 = [("edge pairs", *edge_pairs(e13))] + [
+        (n, with_edges(rand_fe(n), e13), with_edges(rand_fe(n), e13[::-1]))
+        for n in R16_SHAPES]
+    for label, a, b in ops16:
+        a, b = t(a), t(b)
+        m = a.shape[0]
+        cases["r16_mul"].append((label,
+                                 lambda a=a, b=b: cuda_radix16.mul(a, b),
+                                 lambda a=a, b=b: R16.mul_plain(a, b),
+                                 m * IMAD_R16, 3 * m * R16_BYTES))
+        cases["r16_sq"].append((label, lambda a=a: cuda_radix16.sq(a),
+                                lambda a=a: R16.sq_plain(a),
+                                m * IMAD_R16, 2 * m * R16_BYTES))
+    for name, ops, kern, plain, imad, row_bytes in (
+            ("r16_mul_chain", ops16, cuda_radix16.mul_chain,
+             R16.mul_chain_plain, IMAD_R16, R16_BYTES),
+            ("fe_mul_chain", ops13, cuda_field.mul_chain, F.mul_chain_plain,
+             IMAD_MUL, FE_BYTES)):
+        for label, a, b in ops:
+            a, b = t(a), t(b)
+            m = a.shape[0]
+            for reps in CHAIN_REPS:
+                cases[name].append(
+                    (f"{label}, reps {reps}",
+                     lambda a=a, b=b, r=reps, k=kern: k(a, b, r),
+                     lambda a=a, b=b, r=reps, p=plain: p(a, b, r),
+                     m * reps * imad, 3 * m * row_bytes))
     return cases
 
 
@@ -1052,13 +1142,26 @@ def check_host(gens):
 # --- 9. the benchmarks -----------------------------------------------------
 REPO = Path(__file__).resolve().parent
 BENCH_MSM = "cudabulletproof_tpu_torch.benchmarks.bench_msm"
-# (label, python arguments, MSM sizes as powers of two; None for bench.py)
+# (label, python arguments, the check of its output lines)
 BENCH_RUNS = (
     ("--benchmark", ["-m", "cudabulletproof_tpu_torch", "--benchmark"],
-     (16,)),
-    ("bench_msm --big", ["-m", BENCH_MSM, "--big"], (16, 20)),
-    ("bench", ["-m", "cudabulletproof_tpu_torch.bench"], None),
+     lambda lines: check_bench_msm_lines(lines, (16,))),
+    ("bench_msm --big", ["-m", BENCH_MSM, "--big"],
+     lambda lines: check_bench_msm_lines(lines, (16, 20))),
+    ("bench", ["-m", "cudabulletproof_tpu_torch.bench"],
+     lambda lines: check_bench_record(lines)),
+    ("bench_radix16",
+     ["-m", "cudabulletproof_tpu_torch.benchmarks.bench_radix16"],
+     lambda lines: check_bench_radix16_lines(lines)),
 )
+# bench_radix16's defaults (the JAX script's) and its lines
+R16_BENCH = (1 << 16, 64)
+R16_BENCH_LINES = (
+    r"correctness ok \(chained muls vs oracle\); n=(\d+) reps=(\d+) "
+    r"backend=cuda",
+    r"radix13 20-limb mul: +([\d.]+) ms +([\d.]+) G mul/s",
+    r"radix16 16-limb mul: +([\d.]+) ms +([\d.]+) G mul/s  "
+    r"\(([\d.]+)x radix13\)")
 BENCH_TIMEOUT_S = 400
 BENCH_PROOF_METRICS = [
     "range_prove_16bit_latency", "range_verify_16bit_latency",
@@ -1114,12 +1217,35 @@ def check_bench_record(lines) -> None:
         raise AssertionError(f"bench record {rec}: missing {missing}")
 
 
+def check_bench_radix16_lines(lines) -> None:
+    """bench_radix16's three lines at its defaults: the correctness gate
+    passed on the card, then both chains' times and rates (positive); logs
+    each chain's time against its bound (the chain's IMADs over the card's
+    rate)."""
+    found = [re.fullmatch(pat, ln) for pat, ln in zip(R16_BENCH_LINES, lines)]
+    if len(lines) != len(R16_BENCH_LINES) or not all(found):
+        raise AssertionError(f"bench_radix16 printed {lines}")
+    if tuple(int(v) for v in found[0].groups()) != R16_BENCH:
+        raise AssertionError(f"bench_radix16 ran at {found[0].groups()}")
+    nums = [float(v) for m in found[1:] for v in m.groups()]
+    if not all(v > 0 for v in nums):
+        raise AssertionError(f"bench_radix16 numbers not positive: {nums}")
+    rate = imad_per_s()[0]
+    muls = R16_BENCH[0] * R16_BENCH[1]
+    for label, ms, imad in (("radix13", nums[0], IMAD_MUL),
+                            ("radix16", nums[2], IMAD_R16)):
+        bound_ms = muls * imad / rate * 1e3
+        log(f"bench_radix16 {label}: {ms} ms (host clock) against its bound "
+            f"{bound_ms:.4f} ms ({muls} multiplies x {imad} IMADs): "
+            f"{bound_ms / ms:.3f} of the bound")
+
+
 def run_benchmarks(card: str) -> dict:
     """Phase 9: each of BENCH_RUNS as its own process from the checkout's
     root; each must exit 0 and print its lines with every check passed.
     Returns label -> seconds."""
     secs = {}
-    for label, args, exps in BENCH_RUNS:
+    for label, args, check in BENCH_RUNS:
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, *args], cwd=REPO,
                              env=dict(os.environ, BP_PLATFORM="cuda"),
@@ -1132,10 +1258,7 @@ def run_benchmarks(card: str) -> dict:
         if out.returncode != 0:
             raise AssertionError(f"{label}: exit {out.returncode}\n"
                                  f"{out.stderr[-4000:]}")
-        if exps is None:
-            check_bench_record(lines)
-        else:
-            check_bench_msm_lines(lines, exps)
+        check(lines)
         log(f"bench {label}: exit 0, every check passed, "
             f"{secs[label]:.1f} s")
     return secs
@@ -1148,6 +1271,19 @@ def bench_in_process() -> bool:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--benchmark"])
     check_bench_msm_lines(buf.getvalue().splitlines(), (16,))
+    return rc == 0
+
+
+def bench_radix16_in_process() -> bool:
+    """``bench_radix16.main([])`` in this process (its lines checked as the
+    process's are), for the counted run.  Imported here: it imports
+    bench_msm, which ``cli.main(["--benchmark"])`` runs as ``__main__``
+    (runpy warns if the module is already loaded)."""
+    from cudabulletproof_tpu_torch.benchmarks import bench_radix16
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_radix16.main([])
+    check_bench_radix16_lines(buf.getvalue().splitlines())
     return rc == 0
 
 
@@ -1335,6 +1471,10 @@ def run(dev, card: str, rate: float) -> dict:
                   other + list(NO_PATH)))
     paths.append(("the bench, cli.main(['--benchmark'])", bench_in_process,
                   BENCH_KERNELS, other + list(NO_PATH)))
+    r16_kernels = ["r16_mul_chain", "fe_mul_chain"]
+    paths.append(("the radix A/B, bench_radix16.main([])",
+                  bench_radix16_in_process, r16_kernels,
+                  [k for k in counts() if k not in r16_kernels]))
     launches = {k: 0 for k in counts()}
     for got in prove_counts + [counted(*path) for path in paths]:
         for k, v in got.items():

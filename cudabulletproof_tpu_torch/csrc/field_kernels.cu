@@ -10,6 +10,8 @@
 //                      (bp_fe_inner_product) and
 //                      _inner_product_batched_kernel
 //                      (bp_fe_inner_product_batched)
+//   fe_mul_chain_kernel replaces the kernel `kern` of
+//                      benchmarks/bench_radix16.py::chain13
 //
 // Layout: rows of 20 int32 limbs, [n, 20] row-major, as the port's public
 // functions hold them (the Pallas kernels transposed to [20, n] tiles to put
@@ -57,6 +59,13 @@
 // Bounds: a coefficient < 20 * 8799^2 < 2^31; a tile's lo sum < 2^21 and hi
 // sum < 2^26; at n <= 2^17 (the wrapper's limit) a column takes at most 4
 // tiles, < 2^28.
+//
+// fe_mul_chain is the radix-13 side of the radix-16 A/B
+// (benchmarks/bench_radix16.py): x <- x * b, `reps` times (a runtime loop)
+// in one launch, b and x held in registers, the same bp::fe_mul as fe_mul
+// (_conv_fold limb for limb).  441 IMADs a multiply against 240 bytes an
+// element for the whole chain, so at reps = 64 it is bound by the
+// multiplies.
 //
 // C interface: each entry takes device pointers, the count n and a
 // cudaStream_t (PyTorch's current stream), launches without synchronizing
@@ -129,6 +138,19 @@ __global__ void fe_sub3_kernel(const int32_t* __restrict__ a,
   for (int k = 1; k < bp::FE_L; ++k) r.v[k] = x.v[k] + (bp::FE_KNEG - y.v[k]);
   bp::fe_relax<3>(r);
   bp::fe_store(out + i * bp::FE_L, r);
+}
+
+__global__ void fe_mul_chain_kernel(const int32_t* __restrict__ a,
+                                    const int32_t* __restrict__ b,
+                                    int32_t* __restrict__ out, int64_t n,
+                                    int64_t reps) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const bp::fe y = bp::fe_load(b + i * bp::FE_L);
+  bp::fe x = bp::fe_load(a + i * bp::FE_L);
+#pragma unroll 1
+  for (int64_t r = 0; r < reps; ++r) x = bp::fe_mul(x, y);
+  bp::fe_store(out + i * bp::FE_L, x);
 }
 
 constexpr int kIpLanes = 256;     // elements a tile (one block)
@@ -237,6 +259,16 @@ extern "C" int bp_fe_sub(const int32_t* a, const int32_t* b, int32_t* out,
   if (n <= 0) return 0;
   fe_sub3_kernel<<<blocks_for(n), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bp_fe_mul_chain(const int32_t* a, const int32_t* b,
+                               int32_t* out, int64_t n, int64_t reps,
+                               void* stream) {
+  if (n <= 0) return 0;
+  fe_mul_chain_kernel<<<blocks_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a, b, out, n,
+                                                             reps);
   return static_cast<int>(cudaGetLastError());
 }
 

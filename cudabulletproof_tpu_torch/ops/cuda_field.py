@@ -8,6 +8,8 @@
     fe_sub      <- pallas_field.py::_sub_kernel (a + (K - b), three rounds)
     fe_inner_product          <- pallas_field.py::_inner_product_kernel
     fe_inner_product_batched  <- pallas_field.py::_inner_product_batched_kernel
+    fe_mul_chain  <- benchmarks/bench_radix16.py::chain13's kernel ``kern``
+                     (``reps`` dependent fe_mul in one launch)
 
 Each wrapper takes CUDA int32 tensors of 20-limb field elements whose batch
 dims broadcast, expands them to one shape, makes them contiguous and flat
@@ -18,7 +20,8 @@ partial sums (zeroed with ``torch.zeros`` before the launch), which
 ``field.ip_combine`` turns into limbs.  It raises on anything the
 kernel does not take; there is no fallback.  The plain twins live in
 ``ops/field.py`` (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
-``invert_plain``, ``add3_plain``, ``sub3_plain``, ``ip_partial_plain``).
+``invert_plain``, ``add3_plain``, ``sub3_plain``, ``ip_partial_plain``,
+``mul_chain_plain``).
 
 ``launches`` counts kernel launches per kernel, one per launch and nowhere
 else, so a run can show that its path went through the kernels.
@@ -32,7 +35,7 @@ from ..utils import build
 L = 20
 launches = {"fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0,
             "fe_add": 0, "fe_sub": 0, "fe_inner_product": 0,
-            "fe_inner_product_batched": 0}
+            "fe_inner_product_batched": 0, "fe_mul_chain": 0}
 IP_COEFFS = 2 * L - 1      # convolution coefficients
 IP_WIDTH = 256             # lo columns 0..127, hi columns 128..255
 MAX_ROWS = 65535           # the grid's y extent
@@ -59,15 +62,23 @@ def flat_operands(width: int, *ts: torch.Tensor):
     return batch, flats
 
 
-def _run(name: str, *ts: torch.Tensor) -> torch.Tensor:
-    batch, flats = flat_operands(L, *ts)
+def launch_rows(counts: dict, name: str, width: int, *ts: torch.Tensor,
+                extra=()) -> torch.Tensor:
+    """Launch ``bp_<name>(*flat operands, out, n, *extra, stream)`` on rows
+    of `width` limbs and count it in `counts`; returns out in the
+    operands' batch shape (no launch for n = 0)."""
+    batch, flats = flat_operands(width, *ts)
     out = torch.empty_like(flats[0])
     n = out.shape[0]
     if n:
         with torch.cuda.device(out.device):
-            build.launch(f"bp_{name}", *flats, out, n)
-        launches[name] += 1
-    return out.reshape(*batch, L)
+            build.launch(f"bp_{name}", *flats, out, n, *extra)
+        counts[name] += 1
+    return out.reshape(*batch, width)
+
+
+def _run(name: str, *ts: torch.Tensor, extra=()) -> torch.Tensor:
+    return launch_rows(launches, name, L, *ts, extra=extra)
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,6 +103,12 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _run("fe_sub", a, b)
+
+
+def mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """x <- x*b, `reps` times from x = a, in one launch (reps <= 0 copies
+    a)."""
+    return _run("fe_mul_chain", a, b, extra=(int(reps),))
 
 
 def inner_product_partial(a: torch.Tensor, b: torch.Tensor,

@@ -7,10 +7,11 @@ little-endian, kept *weakly normalized* (every limb in ``[0, BOUND]`` with
 fully.  Every partial product of the 20x20 limb convolution is below
 ``20 * 8799^2 < 2^31``, so all arithmetic is exact in int32.
 
-Dispatch: ``mul``, ``sq``, ``pow2523``, ``invert``, ``add3`` and ``sub3`` run
-their hand-written CUDA kernel (``ops/cuda_field.py``) on a CUDA tensor and
-their plain torch twin (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
-``invert_plain``, ``add3_plain``, ``sub3_plain``) on a CPU tensor.  The twins compute the same limbs as the kernels and as the JAX
+Dispatch: ``mul``, ``sq``, ``mul_chain``, ``pow2523``, ``invert``, ``add3``
+and ``sub3`` run their hand-written CUDA kernel (``ops/cuda_field.py``) on a
+CUDA tensor and their plain torch twin (``mul_plain``, ``sq_plain``,
+``mul_chain_plain``, ``pow2523_plain``, ``invert_plain``, ``add3_plain``,
+``sub3_plain``) on a CPU tensor.  The twins compute the same limbs as the kernels and as the JAX
 package's ``mul_xla`` / Pallas ``_conv_fold`` (20x20 convolution, fold x608,
 three relax passes), so kernel, twin and reference agree limb for limb.
 ``add3`` / ``sub3`` are the Pallas ``PF.add`` / ``PF.sub`` (three relax
@@ -204,6 +205,25 @@ def sq(a: torch.Tensor) -> torch.Tensor:
     if _on_cpu(a):
         return sq_plain(a)
     return cuda_field.sq(a)
+
+
+def mul_chain_plain(a: torch.Tensor, b: torch.Tensor,
+                    reps: int) -> torch.Tensor:
+    """Plain twin of the fe_mul_chain kernel: x <- mul_plain(x, b), `reps`
+    times from x = a (reps <= 0 gives a)."""
+    x = torch.broadcast_tensors(a, b)[0].clone()
+    for _ in range(reps):
+        x = mul_plain(x, b)
+    return x
+
+
+def mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """`reps` dependent multiplies x <- x*b from x = a, one kernel launch on
+    the card: the radix-13 side of the radix-16 A/B (the JAX package's
+    ``benchmarks/bench_radix16.py::chain13``)."""
+    if _on_cpu(a, b):
+        return mul_chain_plain(a, b, reps)
+    return cuda_field.mul_chain(a, b, reps)
 
 
 def _sqn(a, n: int, sq_fn):

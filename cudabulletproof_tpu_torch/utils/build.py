@@ -60,6 +60,10 @@ SIGNATURES = {
     "bp_sort_hist": [_P, _P, _N, _N, _P],
     # keys, base, cnt, rank, nblk, radix, stream
     "bp_sort_rank": [_P, _P, _P, _P, _N, _N, _P],
+    "bp_fe_mul_chain": [_P, _P, _P, _N, _N, _P],  # a, b, out, n, reps, stream
+    "bp_r16_mul": [_P, _P, _P, _N, _P],         # a, b, out, n, stream
+    "bp_r16_sq": [_P, _P, _N, _P],              # a, out, n, stream
+    "bp_r16_mul_chain": [_P, _P, _P, _N, _N, _P],  # a, b, out, n, reps, stream
 }
 
 _lib = None

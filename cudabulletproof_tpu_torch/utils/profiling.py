@@ -32,7 +32,11 @@ IMAD_ADD = 9 * IMAD_MUL                       # unified point add
 IMAD_DBL = 4 * IMAD_SQ + 4 * IMAD_MUL         # dedicated doubling
 IMAD_MADD = 7 * IMAD_MUL                      # mixed add of the accumulator
 IMAD_INNER = 400                              # limb products an element
+# a radix-2^16 multiply (ops/radix16.py): two banks of 256 limb products,
+# 31 fold products, the double wrap (2) and 3 relaxation carries x38
+IMAD_R16 = 2 * 256 + 31 + 2 + 3
 FE_BYTES = 20 * 4                             # 80 B a field element
+R16_BYTES = 16 * 4                            # 64 B a radix-2^16 element
 PT_BYTES = 4 * FE_BYTES                       # 320 B a point row
 
 

@@ -223,7 +223,7 @@ def test_build_plan():
     import ctypes
     names = sorted(p.name for p in build.sources())
     assert names == ["accum_kernels.cu", "curve_kernels.cu", "field_kernels.cu",
-                     "scan_kernels.cu"]
+                     "radix16_kernels.cu", "scan_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path().parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "cudabulletproof_tpu_torch")

@@ -19,9 +19,11 @@ import make_prove_golden as golden
 from cudabulletproof_tpu_torch import cli, config
 from cudabulletproof_tpu_torch.models import fused as TFU, rangeproof as TR
 from cudabulletproof_tpu_torch.models.generators import get_generators
-from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field, cuda_sort,
+from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
+                                           cuda_radix16, cuda_sort,
                                            curve as TC, field as TF,
                                            msm as TM, pippenger as TP,
+                                           radix16 as TR16,
                                            sort as TSO)
 from cudabulletproof_tpu_torch.utils import oracle, serialization
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
@@ -124,7 +126,7 @@ def test_add_sub_kernels_contract(dev):
     assert {k: cuda_field.launches[k] - before[k] for k in before} == {
         "fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0,
         "fe_add": 1, "fe_sub": 1, "fe_inner_product": 0,
-        "fe_inner_product_batched": 0}
+        "fe_inner_product_batched": 0, "fe_mul_chain": 0}
 
 
 def test_field_broadcast_and_strides(dev):
@@ -328,7 +330,7 @@ def test_launch_counts_and_refusals(dev):
             for k in field_before} == {
         "fe_mul": 1, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 1,
         "fe_add": 1, "fe_sub": 1, "fe_inner_product": 0,
-        "fe_inner_product_batched": 0}
+        "fe_inner_product_batched": 0, "fe_mul_chain": 0}
     with pytest.raises(ValueError):
         cuda_curve.bucket_accum(pre, dg, 3, 32, 1)        # w outside 4..8
     with pytest.raises(ValueError):
@@ -646,3 +648,115 @@ def test_bench_on_card(dev, capsys):
     assert out[-1] == {"check": "msm_split_half_2e12", "ok": True}
     assert all(o["speed_of_light_per_sec"] > 0 for o in out
                if "roofline" in o)
+
+
+def _r16_edges():
+    """Radix-2^16 edge rows: 0, 1, p - 1, every limb 2^16 + 38 (the weak
+    bound), every limb 0xFFFF."""
+    return np.array([TR16.from_int(0), TR16.from_int(1),
+                     TR16.from_int(TF.P - 1), [TR16.BOUND16] * 16,
+                     [TR16.MASK16] * 16], dtype=np.int32)
+
+
+def _r16_operands(n, dev, width=16):
+    """(a, b) [n, width]: every pair of edge rows for n = "edges", else
+    random weak limbs (below 2^16 + 38, or 8799 for width 20) with the edge
+    rows at random places of the first half."""
+    if width == 16:
+        edges, top = _r16_edges(), (1 << 16) + 38
+    else:
+        edges = np.array([[TF.BOUND] * 20, [0x1FFF] * 20, _raw(0), _raw(1),
+                          _raw(TF.P - 1)], dtype=np.int32)
+        top = TF.BOUND
+    if n == "edges":
+        k = len(edges)
+        a, b = np.repeat(edges, k, axis=0), np.tile(edges, (k, 1))
+    else:
+        rng = np.random.default_rng(n + width)
+        a = rng.integers(0, top + 1, size=(n, width), dtype=np.int32)
+        b = rng.integers(0, top + 1, size=(n, width), dtype=np.int32)
+        k = min(n // 2, len(edges))
+        a[rng.choice(n, k, replace=False)] = edges[:k]
+        b[rng.choice(n, k, replace=False)] = edges[::-1][:k]
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.parametrize("n", ["edges", 1, 255, 257, 1 << 16])
+def test_radix16_kernels_equal_twins(dev, n):
+    """r16_mul and r16_sq against mul_plain / sq_plain, limb for limb; the
+    public functions take the kernels; values against Python ints on the
+    edge pairs."""
+    a, b = _r16_operands(n, dev)
+    m = cuda_radix16.mul(a, b)
+    s = cuda_radix16.sq(a)
+    assert torch.equal(m, TR16.mul_plain(a, b))
+    assert torch.equal(s, TR16.sq_plain(a))
+    before = dict(cuda_radix16.launches)
+    assert torch.equal(TR16.mul(a, b), m) and torch.equal(TR16.sq(a), s)
+    assert cuda_radix16.launches["r16_mul"] == before["r16_mul"] + 1
+    assert cuda_radix16.launches["r16_sq"] == before["r16_sq"] + 1
+    if n == "edges":
+        for x, y, got in zip(a.cpu(), b.cpu(), m.cpu()):
+            assert TR16.to_int(got) == TR16.to_int(x) * TR16.to_int(y) % TF.P
+
+
+@pytest.mark.parametrize("reps", [0, 1, 64])
+@pytest.mark.parametrize("n", ["edges", 1, 255, 257, 1 << 16])
+def test_mul_chain_kernels_equal_twins(dev, n, reps):
+    """r16_mul_chain and fe_mul_chain against their twins, limb for limb
+    (reps = 0 copies a); (2^16, 64) is the bench's shape."""
+    a, b = _r16_operands(n, dev)
+    got = TR16.mul_chain(a, b, reps)
+    assert torch.equal(got, TR16.mul_chain_plain(a, b, reps))
+    if reps == 0:
+        assert torch.equal(got, a)
+    a, b = _r16_operands(n, dev, width=20)
+    got = TF.mul_chain(a, b, reps)
+    assert torch.equal(got, TF.mul_chain_plain(a, b, reps))
+
+
+def test_radix16_launch_counts_and_refusals(dev):
+    """One launch counted per call (none for zero rows); wrong dtype, wrong
+    width and a CPU operand refused, with nothing counted."""
+    a = torch.zeros((3, 16), dtype=torch.int32, device=dev)
+    a13 = torch.zeros((3, 20), dtype=torch.int32, device=dev)
+    before = (dict(cuda_radix16.launches), dict(cuda_field.launches))
+    cuda_radix16.mul(a, a)
+    cuda_radix16.sq(a)
+    cuda_radix16.mul_chain(a, a, 2)
+    cuda_field.mul_chain(a13, a13, 2)
+    cuda_radix16.mul(a[:0], a[:0])
+    cuda_field.mul_chain(a13[:0], a13[:0], 2)
+    assert {k: cuda_radix16.launches[k] - before[0][k]
+            for k in before[0]} == {"r16_mul": 1, "r16_sq": 1,
+                                    "r16_mul_chain": 1}
+    assert cuda_field.launches["fe_mul_chain"] == \
+        before[1]["fe_mul_chain"] + 1
+    after = (dict(cuda_radix16.launches), dict(cuda_field.launches))
+    with pytest.raises(TypeError):
+        cuda_radix16.mul(a.long(), a.long())
+    with pytest.raises(ValueError):
+        cuda_radix16.sq(a13)                              # 20 limbs
+    with pytest.raises(ValueError):
+        cuda_radix16.mul(a, a.cpu())
+    with pytest.raises(TypeError):
+        cuda_field.mul_chain(a13.long(), a13.long(), 1)
+    with pytest.raises(ValueError):
+        cuda_field.mul_chain(a, a, 1)                     # 16 limbs
+    with pytest.raises(ValueError):
+        cuda_field.mul_chain(a13, a13.cpu(), 1)
+    assert (dict(cuda_radix16.launches), dict(cuda_field.launches)) == after
+
+
+def test_bench_radix16_on_card(dev, capsys, monkeypatch):
+    """The port's bench_radix16 at its defaults on the card: the gate
+    passes and both timing lines print positive rates."""
+    from cudabulletproof_tpu_torch.benchmarks import bench_radix16 as TB
+    monkeypatch.setenv("BP_PLATFORM", "cuda")
+    assert TB.main([]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("correctness ok (chained muls vs oracle); n=65536 "
+                        "reps=64 backend=cuda")
+    assert lines[1].startswith("radix13 20-limb mul: ")
+    assert lines[2].startswith("radix16 16-limb mul: ")
+    assert float(lines[2].split()[5]) > 0

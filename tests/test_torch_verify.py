@@ -351,7 +351,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for name in ('models.aggregate', 'utils.profiling', 'bench',\n"
-        "             'benchmarks.bench_msm'):\n"
+        "             'benchmarks.bench_msm', 'ops.radix16',\n"
+        "             'ops.cuda_radix16', 'benchmarks.bench_radix16'):\n"
         "    assert 'cudabulletproof_tpu_torch.' + name in sys.modules, name\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules\n"
         "                                        if k.startswith('jax'))\n"
