@@ -8,7 +8,7 @@ Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile the port's CUDA kernels from csrc/ with nvcc, one
      process per source, all at once.
-  3. kernels: each of the twenty-two kernels against its plain torch twin on
+  3. kernels: each of the twenty-four kernels against its plain torch twin on
      the card, on inputs from a fixed numpy seed at the paths' shapes plus
      edge inputs; equality must be exact, limb for limb (tolerance 0:
      integer arithmetic).  fe_add / fe_sub at 1, 25 (the edge rows),
@@ -41,7 +41,19 @@ Phases, each raising on failure (so the exit code is nonzero):
      every limb 8799 among them), the last, (2^16, 64), the bench's shape
      and the one timed; their bound is 548 (radix 16) or 441 (radix 13)
      IMADs a multiply over the IMAD rate for the chains and r16_mul /
-     r16_sq's 3 / 2 x 64 bytes an element over the HBM rate.
+     r16_sq's 3 / 2 x 64 bytes an element over the HBM rate.  The
+     microbenchmark kernels: ge_add_chain at every op (add, dbl) and
+     (mul_passes, add_passes) pair of bench_addrate's sweep, K = 16 on 256
+     lanes (the base point and random weak rows; the timing-only pairs'
+     limbs wrap modulo 2^32 in both), timed at add (5, 2), K = 64 on 2048
+     lanes; ge_accum_window at each of its 13 variants at nw = 4, 2 steps,
+     unroll 4, 1024 lanes, w = 4 (random weak points and digits), full,
+     cached and tree at w = 5 (17 buckets, kept in device memory) and full
+     with the buckets forced to device memory, timed at _accum_micro's
+     defaults (65 windows of 2^16 points, w = 4), and once more, timed and
+     logged, at _repro_accum3's shape and inputs; their bound is their
+     IMADs (the chain's links; a mixed add per nonzero digit, the fold and
+     the tree's unified adds) over the card's rate.
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
@@ -83,12 +95,18 @@ Phases, each raising on failure (so the exit code is nonzero):
   9. the benchmarks, each its own process: ``python -m
      cudabulletproof_tpu_torch --benchmark``, ``python -m
      cudabulletproof_tpu_torch.benchmarks.bench_msm --big``, ``python -m
-     cudabulletproof_tpu_torch.bench`` and ``python -m
-     cudabulletproof_tpu_torch.benchmarks.bench_radix16``; each must exit 0
-     and print its lines (echoed with the card's name) with every check
-     passed: the split-half MSM identities at 2^16 and 2^20, every proof
-     accepted, the bench's MSMs exact, both multiply chains equal to Python
-     ints (bench_radix16's rates are logged beside their bounds).
+     cudabulletproof_tpu_torch.bench``, ``python -m
+     cudabulletproof_tpu_torch.benchmarks.bench_radix16`` and the three
+     diagnostic scripts ``bench_addrate`` (its sweep at K = 4096),
+     ``_accum_micro`` (its five variants at its defaults, the buckets in
+     shared and then in device memory) and ``_repro_accum3`` (its nine
+     variants); each must exit 0 and print its lines (echoed with the
+     card's name) with every check passed: the split-half MSM identities at
+     2^16 and 2^20, every proof accepted, the bench's MSMs exact, both
+     multiply chains equal to Python ints, the add and dbl chains equal to
+     (K + 1) B and 2^K B and to their twins, every window equal to its twin
+     (bench_radix16's, bench_addrate's and _accum_micro's times are logged
+     beside their bounds).
  10. the main paths, counted: the launch counters are set to 0 before each
      path (one verify; a batch of 16; batches of 128 and 256; the four
      msm_auto sizes; with the accumulator off msm_auto at 2^16 and 2^20,
@@ -97,9 +115,10 @@ Phases, each raising on failure (so the exit code is nonzero):
      (["--benchmark"])`` in this process; the radix A/B,
      ``bench_radix16.main([])`` in this process, which must launch
      r16_mul_chain and fe_mul_chain and no other kernel) and read after it;
-     every kernel but fe_sub, fe_inner_product_batched, r16_mul and r16_sq
-     must launch on them (those four have no program path, in the JAX
-     package either: they must launch in phase 3).  Then wall times
+     every kernel but fe_sub, fe_inner_product_batched, r16_mul, r16_sq,
+     ge_add_chain and ge_accum_window must launch on them (those six have
+     no program path, in the JAX package either: they must launch in phase
+     3).  Then wall times
      (fused.prove under each ladder, median of 3, with fresh randomness:
      the last proof of each must pass the native verifier; the host prover
      at n = 16 and 64, the host verifiers, fused.verify and the native
@@ -134,9 +153,12 @@ import torch
 from cudabulletproof_tpu_torch import cli, config
 from cudabulletproof_tpu_torch.models import fused, rangeproof as RP
 from cudabulletproof_tpu_torch.models.generators import get_generators
+from cudabulletproof_tpu_torch.benchmarks import _accum_micro as AM
 from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
-                                           cuda_radix16, cuda_sort)
+                                           cuda_micro, cuda_radix16,
+                                           cuda_sort)
 from cudabulletproof_tpu_torch.ops import curve as C, field as F
+from cudabulletproof_tpu_torch.ops import micro as MC
 from cudabulletproof_tpu_torch.ops import msm as M, pippenger as PP
 from cudabulletproof_tpu_torch.ops import radix16 as R16
 from cudabulletproof_tpu_torch.ops import scalar_field as SC, sort as SO
@@ -198,6 +220,18 @@ IP_BATCHED_SHAPES = ((1, 300), (3, 300), (16, 300), (1, 4096), (3, 4096),
 # last timed) and chain lengths; the bench's (n, reps) is the last case
 R16_SHAPES = (1, 255, 257, 1 << 16)
 CHAIN_REPS = (0, 1, 64)
+# the microbenchmark kernels: the chain checked at every (op, pass pair) at
+# K = 16 on 256 lanes (the base point, the script's input, in half of them,
+# random weak rows in the rest), then timed at the add (5, 2) sweep point of
+# 2048 lanes with K = 64 (the twin's time grows with K: ~8 ms a link;
+# bench_addrate times the kernel at K = 4096);
+# the window checked at every variant at nw = 4, 2 steps, unroll 4, 1024
+# lanes, w = 4 (buckets in shared memory), then full, cached and tree at
+# w = 5 (17 buckets: device memory) and full with the buckets forced to
+# device memory at w = 4; timed at _accum_micro's defaults
+MICRO_CHAIN = (16, 256)
+MICRO_CHAIN_TIMED = (64, 2048)
+MICRO_WINDOW = (4, 2, 4, 1024)                 # nw, steps, unroll, lanes
 # the host-transcript protocol: the JAX package's host prover fixture, the
 # CLI's runs, the host prover's timed sizes
 HOST_GOLDEN = "tests/golden/host_prove_n{}.npz"
@@ -249,6 +283,9 @@ KERNELS = [
     ("r16_mul_chain", "radix16_kernels.cu",
      "cudabulletproof_tpu/ops/radix16.py:191"),
     ("fe_mul_chain", "field_kernels.cu", "benchmarks/bench_radix16.py:33"),
+    ("ge_add_chain", "micro_kernels.cu", "benchmarks/bench_addrate.py:100"),
+    ("ge_accum_window", "micro_window_kernels.cu",
+     "benchmarks/_accum_micro.py:30, benchmarks/_repro_accum3.py:22"),
 ]
 # kernels that no program path launches, in the JAX package either; each
 # must launch in the kernel phase instead
@@ -260,7 +297,12 @@ NO_PATH = {"fe_sub": "none in the JAX package (only its tests call "
            "r16_mul": "none in the JAX package (only tests/test_radix16.py "
                       "calls radix16.mul / sq)",
            "r16_sq": "none in the JAX package (only tests/test_radix16.py "
-                     "calls radix16.mul / sq)"}
+                     "calls radix16.mul / sq)",
+           "ge_add_chain": "none in the JAX package either (a diagnostic "
+                           "script: benchmarks/bench_addrate.py)",
+           "ge_accum_window": "none in the JAX package either (diagnostic "
+                              "scripts: benchmarks/_accum_micro.py, "
+                              "benchmarks/_repro_accum3.py)"}
 
 
 def log(*args):
@@ -268,14 +310,15 @@ def log(*args):
 
 
 def reset_counts():
-    for mod in (cuda_field, cuda_curve, cuda_sort, cuda_radix16):
+    for mod in (cuda_field, cuda_curve, cuda_sort, cuda_radix16, cuda_micro):
         for k in mod.launches:
             mod.launches[k] = 0
 
 
 def counts() -> dict:
     return {**cuda_field.launches, **cuda_curve.launches,
-            **cuda_sort.launches, **cuda_radix16.launches}
+            **cuda_sort.launches, **cuda_radix16.launches,
+            **cuda_micro.launches}
 
 
 def accum_off(fn):
@@ -650,12 +693,107 @@ def kernel_cases(rng, dev):
                      lambda a=a, b=b, r=reps, k=kern: k(a, b, r),
                      lambda a=a, b=b, r=reps, p=plain: p(a, b, r),
                      m * reps * imad, 3 * m * row_bytes))
+    micro_cases(cases, t, rand_pts)
     return cases
+
+
+def chain_imads(op: str, mp: int) -> int:
+    """IMADs of one link of the script's chain at mul_passes mp: 9
+    multiplies an add; 4 squares (210 products) and 4 multiplies a
+    doubling; each with 38 fold products and mp relaxation carries."""
+    mul, sq = 400 + 38 + mp, 210 + 38 + mp
+    return 9 * mul if op == "add" else 4 * sq + 4 * mul
+
+
+def window_work(dg: torch.Tensor, nb: int, nbytes: int) -> tuple:
+    """(IMADs, bytes) of the full window on these digits: a mixed add per
+    nonzero digit, the fold's 2 (nb - 1) unified adds a lane and the
+    tree's lanes - 1 a window; each input read once, the output written."""
+    nw, _, _, lanes = dg.shape
+    adds = nw * lanes * 2 * (nb - 1) + nw * (lanes - 1)
+    imads = int((dg != 0).sum()) * IMAD_MADD + adds * IMAD_ADD
+    return imads, nbytes + dg.numel() * 4 + nw * PT_BYTES
+
+
+def micro_cases(cases: dict, t, rand_pts) -> None:
+    """ge_add_chain and ge_accum_window: see MICRO_CHAIN / MICRO_WINDOW."""
+    k, lanes = MICRO_CHAIN
+    half = lanes // 2
+    base = C.flatten(C.base_point((half,))).numpy()
+    rows = t(np.concatenate([base, rand_pts(lanes - half)]))
+    for op in MC.CHAIN_OPS:
+        for mp, ap in MC.PASS_PAIRS:
+            cases["ge_add_chain"].append(
+                (f"{op} ({mp}, {ap}), K {k}, {lanes} lanes",
+                 lambda op=op, mp=mp, ap=ap: cuda_micro.chain(rows, op, k,
+                                                              mp, ap),
+                 lambda op=op, mp=mp, ap=ap: MC.chain_plain(rows, op, k, mp,
+                                                            ap),
+                 k * lanes * chain_imads(op, mp), 2 * lanes * PT_BYTES))
+    k, lanes = MICRO_CHAIN_TIMED
+    timed = t(C.flatten(C.base_point((lanes,))).numpy())
+    cases["ge_add_chain"].append(
+        (f"add (5, 2), K {k}, {lanes} lanes",
+         lambda: cuda_micro.chain(timed, "add", k, 5, 2),
+         lambda: MC.chain_plain(timed, "add", k, 5, 2),
+         k * lanes * chain_imads("add", 5), 2 * lanes * PT_BYTES))
+
+    rng = np.random.default_rng(SEED + 9)
+    nw, steps, unroll, lanes = MICRO_WINDOW
+    win = []
+    for w in (4, 5):
+        nb = MC.nb_for(w)
+        pt = t(rand_pts(steps * unroll * lanes).reshape(steps, unroll, lanes,
+                                                        -1))
+        dg = t(rng.integers(-(nb - 1), nb, (nw, steps, unroll, lanes),
+                            dtype=np.int32))
+        win.append((w, nb, pt, dg))
+    (w4, nb4, pt4, dg4), (w5, nb5, pt5, dg5) = win
+    runs = [(v, w4, nb4, pt4, dg4) for v in MC.VARIANTS]
+    runs += [(v, w5, nb5, pt5, dg5) for v in ("full", "cached", "tree")]
+    for v, w, nb, pt, dg in runs:
+        where = "shared" if cuda_micro.uses_shared(nb) else "device"
+        cases["ge_accum_window"].append(
+            (f"{v}, w {w}, [{nw}, {steps}, {unroll}, {lanes}], buckets in "
+             f"{where} memory",
+             lambda v=v, nb=nb, pt=pt, dg=dg:
+                 cuda_micro.accum_window(pt, dg, v, nb),
+             lambda v=v, nb=nb, pt=pt, dg=dg: MC.accum_window_plain(pt, dg,
+                                                                    v, nb),
+             *window_work(dg, nb, pt.numel() * 4)))
+    w, lanes, unroll = 4, 1024, 4
+    pt, dg = AM.inputs(w, lanes, unroll, 1 << 16, pt4.device)
+    nb = MC.nb_for(w)
+    cases["ge_accum_window"].append(
+        (f"full, _accum_micro's defaults (w {w}, {lanes} lanes, unroll "
+         f"{unroll}, 2^16 points, {AM.NW} windows)",
+         lambda: cuda_micro.accum_window(pt, dg, "full", nb),
+         lambda: MC.accum_window_plain(pt, dg, "full", nb),
+         *window_work(dg, nb, pt.numel() * 4)))
 
 
 # the inner products' operands by (kernel, shape), kept by kernel_cases for
 # check_inner_products
 IP_OPERANDS = {}
+
+
+def time_repro_shape(dev, rate) -> None:
+    """ge_accum_window at _repro_accum3's shape and inputs (every digit 0:
+    the fold and the tree are all the work), variant full: equal to its
+    twin, its time and the twin's beside the bound."""
+    from cudabulletproof_tpu_torch.benchmarks import _repro_accum3 as RA
+    pt, dg = RA.inputs(dev)
+    kern = lambda: cuda_micro.accum_window(pt, dg, "full", RA.NB)
+    plain = lambda: MC.accum_window_plain(pt, dg, "full", RA.NB)
+    if not torch.equal(kern(), plain()):
+        raise AssertionError("ge_accum_window at _repro_accum3's shape: "
+                             "kernel != plain")
+    ms, plain_ms = cuda_median_ms(kern), cuda_median_ms(plain, reps=3)
+    bound_ms, by = bound(*window_work(dg, RA.NB, pt.numel() * 4), rate)
+    log(f"kernel ge_accum_window n=full, _repro_accum3's shape ([{RA.NW}, "
+        f"{RA.STEPS}, {RA.UNROLL}, {RA.LANES}], nb {RA.NB}, digits 0): equal "
+        f"to plain, {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({by})")
 
 
 def check_inner_products() -> None:
@@ -713,7 +851,8 @@ def check_kernels(dev, rate) -> dict:
             if i < len(cases) - 1:
                 log(f"kernel {name:15s} n={label}: equal to plain")
                 continue
-            slow = name in ("ge_bucket_accum", "ge_ladder_bin")
+            slow = name in ("ge_bucket_accum", "ge_ladder_bin",
+                            "ge_add_chain", "ge_accum_window")
             ms = cuda_median_ms(kern)
             plain_ms = cuda_median_ms(plain, reps=1 if slow else 3)
             bound_ms, bound_by = bound(imads, nbytes, rate)
@@ -1153,7 +1292,28 @@ BENCH_RUNS = (
     ("bench_radix16",
      ["-m", "cudabulletproof_tpu_torch.benchmarks.bench_radix16"],
      lambda lines: check_bench_radix16_lines(lines)),
+    ("bench_addrate",
+     ["-m", "cudabulletproof_tpu_torch.benchmarks.bench_addrate"],
+     lambda lines: check_addrate_lines(lines)),
+    ("_accum_micro",
+     ["-m", "cudabulletproof_tpu_torch.benchmarks._accum_micro",
+      ",".join(MC.ACCUM_VARIANTS)],
+     lambda lines: check_accum_micro_lines(lines)),
+    ("_repro_accum3",
+     ["-m", "cudabulletproof_tpu_torch.benchmarks._repro_accum3",
+      ",".join(MC.REPRO_VARIANTS)],
+     lambda lines: check_repro_lines(lines)),
 )
+# bench_addrate's default K and the lines of its sweep: (op, lanes,
+# mul_passes, add_passes)
+ADDRATE_K = 4096
+ADDRATE_RUNS = ([("add", n, 5, 2) for n in (256, 512, 1024, 2048)]
+                + [("dbl", n, 5, 2) for n in (256, 1024)]
+                + [("add", 1024, mp, ap) for mp, ap in MC.PASS_PAIRS[1:]])
+ADDRATE_LINE = (r"(add|dbl) +lanes= *(\d+) mulpass=(\d) addpass=(\d)  +"
+                r"([\d.]+) ms  +([\d.]+) M ops/s")
+ACCUM_LINE = (r"VARIANT (\w+) w=4 lanes=1024 u=4: ([\d.]+) ms total \(65 "
+              r"win\)  ([\d.]+) ms/window  ([\d.]+) us/slot")
 # bench_radix16's defaults (the JAX script's) and its lines
 R16_BENCH = (1 << 16, 64)
 R16_BENCH_LINES = (
@@ -1238,6 +1398,52 @@ def check_bench_radix16_lines(lines) -> None:
         log(f"bench_radix16 {label}: {ms} ms (host clock) against its bound "
             f"{bound_ms:.4f} ms ({muls} multiplies x {imad} IMADs): "
             f"{bound_ms / ms:.3f} of the bound")
+
+
+def check_addrate_lines(lines) -> None:
+    """bench_addrate's header and its sweep at K = 4096 on the card, each
+    rate positive; logs each run's time against its bound (K x lanes links
+    x their IMADs over the card's rate)."""
+    if lines[0] != f"backend=cuda  K={ADDRATE_K} chained ops":
+        raise AssertionError(f"bench_addrate header: {lines[:1]}")
+    found = [re.fullmatch(ADDRATE_LINE, ln) for ln in lines[1:]]
+    if len(found) != len(ADDRATE_RUNS) or not all(found):
+        raise AssertionError(f"bench_addrate printed {lines}")
+    rate = imad_per_s()[0]
+    for m, (op, lanes, mp, ap) in zip(found, ADDRATE_RUNS):
+        if (m[1], int(m[2]), int(m[3]), int(m[4])) != (op, lanes, mp, ap):
+            raise AssertionError(f"bench_addrate ran {m.groups()}")
+        ms = float(m[5])
+        if not (ms > 0 and float(m[6]) > 0):
+            raise AssertionError(f"bench_addrate numbers: {m.groups()}")
+        bound_ms = ADDRATE_K * lanes * chain_imads(op, mp) / rate * 1e3
+        log(f"bench_addrate {op} lanes={lanes} ({mp}, {ap}): {ms} ms against "
+            f"its bound {bound_ms:.4f} ms: {bound_ms / ms:.4f} of the bound")
+
+
+def check_accum_micro_lines(lines) -> None:
+    """_accum_micro's five variants at its defaults (buckets in shared
+    memory at w = 4), each with its time; logs each against the full
+    window's bound on its own digits."""
+    found = [re.fullmatch(ACCUM_LINE, ln) for ln in lines]
+    if len(found) != len(MC.ACCUM_VARIANTS) or not all(found) or [
+            m[1] for m in found] != list(MC.ACCUM_VARIANTS):
+        raise AssertionError(f"_accum_micro printed {lines}")
+    if not all(float(m[2]) > 0 for m in found):
+        raise AssertionError(f"_accum_micro times not positive: {lines}")
+    pt, dg = AM.inputs(4, 1024, 4, 1 << 16, torch.device("cpu"))
+    imads, nbytes = window_work(dg, MC.nb_for(4), pt.numel() * 4)
+    bound_ms, by = bound(imads, nbytes, imad_per_s()[0])
+    for m in found:
+        log(f"_accum_micro {m[1]}: {m[2]} ms against the "
+            f"full window's bound {bound_ms:.4f} ms ({by})")
+
+
+def check_repro_lines(lines) -> None:
+    """_repro_accum3's nine variants, each checked against its twin."""
+    want = [f"VARIANT {v} OK (2, 80, 1024)" for v in MC.REPRO_VARIANTS]
+    if lines != want:
+        raise AssertionError(f"_repro_accum3 printed {lines}")
 
 
 def run_benchmarks(card: str) -> dict:
@@ -1389,6 +1595,7 @@ def run(dev, card: str, rate: float) -> dict:
     t_start = time.perf_counter()
     reset_counts()
     kern = check_kernels(dev, rate)
+    time_repro_shape(dev, rate)
     phase = counts()
     unlaunched = [k for k in NO_PATH if phase[k] == 0]
     if unlaunched:

@@ -64,6 +64,12 @@ SIGNATURES = {
     "bp_r16_mul": [_P, _P, _P, _N, _P],         # a, b, out, n, stream
     "bp_r16_sq": [_P, _P, _N, _P],              # a, out, n, stream
     "bp_r16_mul_chain": [_P, _P, _P, _N, _N, _P],  # a, b, out, n, reps, stream
+    # p, out, n, k, op, pass pair, stream
+    "bp_ge_add_chain": [_P, _P, _N, _N, _N, _N, _P],
+    # pt, dg, out, buckets, totals, nw, steps, unroll, lanes, nb, variant,
+    # shared, stream
+    "bp_ge_accum_window": [_P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N,
+                           _P],
 }
 
 _lib = None

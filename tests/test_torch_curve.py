@@ -9,6 +9,13 @@ ladder and the python-int oracle; the JAX package's CPU
 ``double`` is ``add_xla(p, p)``, whose limbs differ from the dedicated
 doubling, so ``double`` is compared on the points (python-int oracle).
 Tolerance zero.
+
+The add, the doubling and the tree reduction read the JAX outputs from the
+committed fixture ``tests/golden/curve_field.npz``
+(``tests/make_curve_field_golden.py``; their Pallas-interpret and XLA
+compiles cost 12-16 s each on a cold cache), as does
+``test_torch_field.py``'s ``pow2523``; ``test_fixture_rebuilds_live``
+(``slow``) rebuilds it and compares every array.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,21 +26,34 @@ from cudabulletproof_tpu.ops import (curve as JC, field as JF,
                                      pallas_curve as PC)
 from cudabulletproof_tpu.utils import oracle
 from cudabulletproof_tpu_torch.ops import cuda_curve, curve as TC, field as TF
+import make_curve_field_golden as golden
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
 pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
 ELL = oracle.ELL
 
 
-@pytest.fixture(scope="module", autouse=True)
-def pts():
-    torch.set_num_threads(1)
+def _points():
+    """(gens, others, scalars): the inputs of these tests (and of the
+    fixture's add, doubling and tree reduction)."""
     rng = np.random.default_rng(4242)
     gens = [oracle.hash_to_point(b"pca", i) for i in range(8)]
     others = [oracle.hash_to_point(b"pcb", i) for i in range(8)]
     scalars = [1, ELL - 1] + [int.from_bytes(rng.bytes(32), "little") % ELL
                               for _ in range(2)]
     return gens, others, scalars
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pts():
+    torch.set_num_threads(1)
+    return _points()
+
+
+@pytest.fixture(scope="module")
+def ref() -> dict:
+    with np.load(golden.GOLDEN) as f:
+        return {k: f[k] for k in f.files}
 
 
 def _t(g) -> TC.GE:
@@ -44,23 +64,26 @@ def _np(g):
     return np.stack([np.asarray(c) for c in g])
 
 
-def test_add_matches_pallas_and_xla(pts):
+def test_add_matches_pallas_and_xla(pts, ref):
+    """The twin against ``pallas_curve.add`` (interpret mode) and
+    ``add_xla``, limb for limb (fixture), and the oracle."""
     gens, others, _ = pts
-    jp, jq = JC.from_oracle(gens), JC.from_oracle(others)
-    got = _np(TC.add(_t(jp), _t(jq)))
-    assert np.array_equal(got, _np(PC.add(jp, jq)))
-    assert np.array_equal(got, _np(JC.add_xla(jp, jq)))
-    assert TC.to_oracle(TC.add(_t(jp), _t(jq))) == [
+    tp, tq = TC.from_oracle(gens), TC.from_oracle(others)
+    got = _np(TC.add(tp, tq))
+    assert np.array_equal(got, ref["add_pallas"])
+    assert np.array_equal(got, ref["add_xla"])
+    assert TC.to_oracle(TC.add(tp, tq)) == [
         p + q for p, q in zip(gens, others)]
 
 
-def test_double_matches_pallas_and_oracle(pts):
+def test_double_matches_pallas_and_oracle(pts, ref):
+    """The dedicated doubling against ``pallas_curve.double`` limb for limb
+    (fixture) and the JAX CPU ``double`` and the oracle on the points."""
     gens, _, _ = pts
-    jp = JC.from_oracle(gens[:4])
-    got = TC.double(_t(jp))
-    assert np.array_equal(_np(got), _np(PC.double(jp)))
+    got = TC.double(TC.from_oracle(gens[:4]))
+    assert np.array_equal(_np(got), ref["double_pallas"])
     # the JAX CPU double is add_xla(p, p): the same points, other limbs
-    assert TC.to_oracle(got) == JC.to_oracle(JC.double(jp)) == [
+    assert TC.to_oracle(got) == TC.to_oracle(_t(ref["double_xla"])) == [
         p.double() for p in gens[:4]]
 
 
@@ -118,13 +141,13 @@ def test_broadcast_scalarmult(pts):
     assert TC.to_oracle(got) == [s * gens[0] for s in scalars]
 
 
-def test_tree_reduce_matches_xla(pts):
-    """13 points (identity-padded to 16): limbs equal to the JAX XLA tree."""
+def test_tree_reduce_matches_xla(pts, ref):
+    """13 points (identity-padded to 16): limbs equal to the JAX XLA tree
+    (fixture)."""
     gens, others, _ = pts
     group = gens + others[:5]
-    jp = JC.from_oracle(group)
-    got = TC.tree_reduce(_t(jp))
-    assert np.array_equal(_np(got), _np(JC.tree_reduce(jp)))
+    got = TC.tree_reduce(TC.from_oracle(group))
+    assert np.array_equal(_np(got), ref["tree_reduce"])
     want = oracle.IDENTITY
     for p in group:
         want = want + p
@@ -164,3 +187,21 @@ def test_dispatch_refuses_non_cuda(pts):
         cuda_curve.add(p, p)
     with pytest.raises(ValueError):
         cuda_curve.ladder(p, TF.from_ints([1, 2]))
+
+
+@pytest.mark.slow
+def test_fixture_rebuilds_live(tmp_path):
+    """``tests/make_curve_field_golden.py`` rerun now, in a child process
+    set up by tests/conftest.py, writes the committed fixture's arrays
+    exactly."""
+    import subprocess
+    import sys
+    dst = tmp_path / "curve_field.npz"
+    out = subprocess.run([sys.executable, golden.__file__, str(dst)],
+                         cwd=golden.TESTS.parent, capture_output=True,
+                         text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    with np.load(dst) as new, np.load(golden.GOLDEN) as old:
+        assert sorted(new.files) == sorted(old.files)
+        for k in old.files:
+            assert np.array_equal(new[k], old[k]), k

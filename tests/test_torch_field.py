@@ -18,6 +18,7 @@ from cudabulletproof_tpu.ops import field as JF, pallas_field as PF
 from cudabulletproof_tpu.utils import oracle
 from cudabulletproof_tpu_torch.ops import cuda_field, field as TF
 from cudabulletproof_tpu_torch.utils import build
+import make_curve_field_golden as golden
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
 pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
@@ -32,15 +33,21 @@ EDGES = [[TF.BOUND] * 20, _raw(0), _raw(1), _raw(P - 1), _raw(P),
          _raw(P + 1), _raw(P + 2), _raw((1 << 255) - 1), [0x1FFF] * 20]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def fe():
-    torch.set_num_threads(1)
+def _operands():
+    """(a, b) [16, 20]: seven random weak rows, then the edge rows (b in
+    reverse); the inputs of these tests and of the fixture's pow2523."""
     rng = np.random.default_rng(20261016)
     rand = rng.integers(0, TF.BOUND + 1, size=(2, 7, 20), dtype=np.int32)
     edges = np.array(EDGES, dtype=np.int32)
     a = np.concatenate([rand[0], edges])
     b = np.concatenate([rand[1], edges[::-1]])
     return a, b
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fe():
+    torch.set_num_threads(1)
+    return _operands()
 
 
 def _t(x):
@@ -85,12 +92,15 @@ def test_mul_broadcasts_a_constant(fe):
 
 
 def test_pow2523_matches_pallas_and_xla(fe):
-    """The Pallas _pow2523_kernel in interpret mode (15 s here) and the XLA
-    chain give the same limbs as the twin."""
+    """The Pallas _pow2523_kernel in interpret mode and the XLA chain give
+    the same limbs as the twin (their outputs from the committed fixture
+    ``tests/golden/curve_field.npz``: ~15 s of compile on a cold cache;
+    ``test_torch_curve.py::test_fixture_rebuilds_live`` rebuilds it)."""
     a, _ = fe
     got = TF.pow2523(_t(a)).numpy()
-    assert np.array_equal(got, np.asarray(PF.pow2523(_j(a))))
-    assert np.array_equal(got, np.asarray(JF.pow2523(_j(a))))
+    with np.load(golden.GOLDEN) as ref:
+        assert np.array_equal(got, ref["pow2523_pallas"])
+        assert np.array_equal(got, ref["pow2523_xla"])
     assert _value(got) == [pow(x, (P - 5) // 8, P) for x in _value(a)]
 
 
@@ -223,6 +233,7 @@ def test_build_plan():
     import ctypes
     names = sorted(p.name for p in build.sources())
     assert names == ["accum_kernels.cu", "curve_kernels.cu", "field_kernels.cu",
+                     "micro_kernels.cu", "micro_window_kernels.cu",
                      "radix16_kernels.cu", "scan_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path().parent == build.BUILD_DIR

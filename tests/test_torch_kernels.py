@@ -20,8 +20,9 @@ from cudabulletproof_tpu_torch import cli, config
 from cudabulletproof_tpu_torch.models import fused as TFU, rangeproof as TR
 from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
-                                           cuda_radix16, cuda_sort,
-                                           curve as TC, field as TF,
+                                           cuda_micro, cuda_radix16,
+                                           cuda_sort, curve as TC,
+                                           field as TF, micro as TMC,
                                            msm as TM, pippenger as TP,
                                            radix16 as TR16,
                                            sort as TSO)
@@ -760,3 +761,89 @@ def test_bench_radix16_on_card(dev, capsys, monkeypatch):
     assert lines[1].startswith("radix13 20-limb mul: ")
     assert lines[2].startswith("radix16 16-limb mul: ")
     assert float(lines[2].split()[5]) > 0
+
+
+def _chain_rows(dev, lanes):
+    """The base point in half the lanes (the script's input), random weak
+    rows in the rest."""
+    rng = np.random.default_rng(lanes)
+    base = TC.flatten(TC.base_point((lanes // 2,), dev))
+    return torch.cat([base, _rand(rng, (lanes - lanes // 2, 80), dev)])
+
+
+@pytest.mark.parametrize("mp,ap", TMC.PASS_PAIRS)
+@pytest.mark.parametrize("op", TMC.CHAIN_OPS)
+def test_add_chain_kernel_equals_twin(dev, op, mp, ap):
+    """ge_add_chain against its twin at every op and pass pair, K = 0, 1
+    and 16 on 130 lanes (the timing-only pairs' limbs wrap modulo 2^32 in
+    both); the (5, 2) chains equal (K + 1) B and 2^K B."""
+    p = _chain_rows(dev, 130)
+    for k in (0, 1, 16):
+        got = TMC.chain(p, op, k, mp, ap)
+        assert torch.equal(got, TMC.chain_plain(p, op, k, mp, ap))
+    if (mp, ap) == (5, 2):
+        want = oracle.BASE * (17 if op == "add" else 1 << 16)
+        assert TC.to_oracle(TC.unflatten(got[:65])) == [want] * 65
+
+
+@pytest.mark.parametrize("variant", TMC.VARIANTS)
+def test_accum_window_kernel_equals_twin(dev, variant):
+    """ge_accum_window against its twin at each variant, w = 2, 4 and 5
+    (3, 9 and 17 buckets), 100 lanes (not a power of two: the tree drops
+    the odd lane as the script does), the buckets in shared memory (w = 2
+    and 4) and in device memory (w = 5)."""
+    rng = np.random.default_rng(7)
+    for w, shared in ((2, True), (4, True), (5, False)):
+        nb = TMC.nb_for(w)
+        assert cuda_micro.uses_shared(nb) == shared
+        pt = _rand(rng, (2, 3, 100, 80), dev)
+        dg = torch.from_numpy(rng.integers(-(nb - 1), nb, (3, 2, 3, 100),
+                                           dtype=np.int32)).to(dev)
+        want = TMC.accum_window_plain(pt, dg, variant, nb)
+        got = TMC.accum_window(pt, dg, variant, nb)
+        assert torch.equal(got, want), w
+
+
+def test_micro_launch_counts_and_refusals(dev):
+    """One launch counted per call (none for zero lanes); wrong dtype,
+    width, a CPU operand, too many buckets and the dead 'mul' op refused,
+    with nothing counted."""
+    p = torch.zeros((3, 80), dtype=torch.int32, device=dev)
+    pt = torch.zeros((1, 1, 4, 80), dtype=torch.int32, device=dev)
+    dg = torch.zeros((2, 1, 1, 4), dtype=torch.int32, device=dev)
+    before = dict(cuda_micro.launches)
+    cuda_micro.chain(p, "add", 2, 5, 2)
+    cuda_micro.accum_window(pt, dg, "full", 3)
+    cuda_micro.chain(p[:0], "dbl", 2, 5, 2)
+    cuda_micro.accum_window(pt[:, :, :0], dg[..., :0], "full", 3)
+    assert {k: cuda_micro.launches[k] - before[k] for k in before} == {
+        "ge_add_chain": 1, "ge_accum_window": 1}
+    after = dict(cuda_micro.launches)
+    with pytest.raises(TypeError):
+        cuda_micro.chain(p.long(), "add", 1, 5, 2)
+    with pytest.raises(ValueError):
+        cuda_micro.chain(p[:, :20], "add", 1, 5, 2)
+    with pytest.raises(ValueError, match="'mul' branch"):
+        cuda_micro.chain(p, "mul", 1, 5, 2)
+    with pytest.raises(ValueError):
+        cuda_micro.accum_window(pt, dg.cpu(), "full", 3)
+    with pytest.raises(ValueError, match="at most 17"):
+        cuda_micro.accum_window(pt, dg, "full", 33)
+    assert dict(cuda_micro.launches) == after
+
+
+def test_micro_scripts_on_card(dev, capsys, monkeypatch):
+    """The three diagnostic scripts on the card at small arguments: the
+    gates pass (chains against the oracle and their twins, windows against
+    their twins) and every line prints."""
+    from cudabulletproof_tpu_torch.benchmarks import (
+        _accum_micro as TA, _repro_accum3 as TRP, bench_addrate as TBA)
+    monkeypatch.setenv("BP_PLATFORM", "cuda")
+    assert TBA.main(["--k", "64", "--lanes", "256", "--reps", "2"]) == 0
+    assert TA.main([",".join(TMC.ACCUM_VARIANTS), "--reps", "2"]) == 0
+    assert TRP.main([",".join(TMC.REPRO_VARIANTS)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "backend=cuda  K=64 chained ops"
+    assert len(lines) == 1 + 6 + 5 + 9
+    assert lines[-9:] == [f"VARIANT {v} OK (2, 80, 1024)"
+                          for v in TMC.REPRO_VARIANTS]

@@ -17,15 +17,16 @@ port runs its kernels' plain twins.  Held:
   the accumulator twin at the block shapes of that test, and ``msm_auto``
   on each of its routes.
 
-The JAX package's outputs are computed once per test run, in one child
-process (``jax_ref``): each function at one shape, op by op
-(``jax.disable_jit``), since compiling them whole costs minutes here (the
-XLA ``tree_reduce`` at 300 points alone compiles one add per halving,
-~110 s on one core) and leaves their executables in the test worker.  Under
-xdist the workers share the child's outputs through a file in the run's
-temporary directory.  No Pallas kernel runs here: the live comparison with
-the JAX package's Pallas accumulator and tile reduction (interpret mode,
-minutes of compile) is the one ``slow`` test at the end.
+The JAX package's outputs (``jax_ref``) are read from the committed
+fixture ``tests/golden/msm_ref.npz``, which ``tests/make_msm_golden.py``
+writes with ``_jax_reference_main``: each function at one shape, op by op
+(``jax.disable_jit``), ~75 s of one core (the XLA ``tree_reduce`` at 300
+points compiled whole would alone take ~110 s), so tier-1 compiles none of
+it; the ``slow`` test ``test_jax_reference_rebuilds_live`` reruns it in a
+child process and compares every array.  No Pallas kernel runs here: the
+live comparison with the JAX package's Pallas accumulator and tile
+reduction (interpret mode, minutes of compile) is the other ``slow`` test
+at the end.
 """
 import functools
 import hashlib
@@ -46,7 +47,6 @@ from cudabulletproof_tpu_torch import config
 from cudabulletproof_tpu_torch.ops import (curve as TC, field as TF,
                                            msm as TM, pippenger as TP)
 from cudabulletproof_tpu_torch.utils import oracle
-from test_torch_verify import _run_dir, _shared
 from jax_release import release_jax_programs  # noqa: F401 (autouse)
 pytest_plugins = ["jax_maps_guard"]  # see tests/jax_maps_guard.py
 
@@ -54,6 +54,7 @@ ELL = oracle.ELL
 P = oracle.P
 TESTS = Path(__file__).resolve().parent
 REPO = TESTS.parent
+GOLDEN = TESTS / "golden" / "msm_ref.npz"
 EDGE_SCALARS = [0, 1, 2, ELL - 1, (1 << 253) - 1]
 WINDOWS = (3, 4, 5, 6, 8, 11)
 
@@ -111,8 +112,8 @@ def _inputs() -> dict:
 
 
 def _jax_reference_main(dst: str) -> None:
-    """Child side of ``jax_ref``: the JAX package on ``_inputs()``, op by
-    op but for the digit scans, saved to ``dst``."""
+    """The JAX package on ``_inputs()``, op by op but for the digit scans,
+    saved to ``dst`` (``tests/make_msm_golden.py`` runs it)."""
     jax.config.update("jax_enable_compilation_cache", False)
     inp = _inputs()
     out = {}
@@ -133,24 +134,32 @@ def _jax_reference_main(dst: str) -> None:
     np.savez(dst, **out)
 
 
+def _load(path) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
 @pytest.fixture(scope="module")
-def jax_ref(tmp_path_factory) -> dict:
-    """The JAX package's outputs on ``_inputs()``, made once per test run
-    in one child process set up by tests/conftest.py like the JAX suite."""
-    root = _run_dir(tmp_path_factory)
+def jax_ref() -> dict:
+    """The JAX package's outputs on ``_inputs()``, from the committed
+    fixture."""
+    return _load(GOLDEN)
 
-    def make():
-        dst = root / "torch_msm_jax_out.npz"
-        code = ("import sys; sys.path[:0] = [%r, %r]; import conftest; "
-                "import test_torch_msm as t; t._jax_reference_main(%r)"
-                % (str(TESTS), str(REPO), str(dst)))
-        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                             capture_output=True, text=True, timeout=900)
-        assert out.returncode == 0, out.stderr[-4000:]
-        with np.load(dst) as f:
-            return {k: f[k] for k in f.files}
 
-    return _shared(root, "torch_msm_jax", make)
+@pytest.mark.slow
+def test_jax_reference_rebuilds_live(tmp_path):
+    """``tests/make_msm_golden.py`` rerun now, in a child process set up by
+    tests/conftest.py like the JAX suite, writes the committed fixture's
+    arrays exactly."""
+    dst = tmp_path / "msm_ref.npz"
+    out = subprocess.run([sys.executable, str(TESTS / "make_msm_golden.py"),
+                          str(dst)], cwd=REPO, capture_output=True,
+                         text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    new, old = _load(dst), _load(GOLDEN)
+    assert sorted(new) == sorted(old)
+    for k in old:
+        assert np.array_equal(new[k], old[k]), k
 
 
 @pytest.mark.parametrize("w", WINDOWS)

@@ -342,8 +342,11 @@ def test_invert_on_device_tensor_reaches_kernel(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without jax and
-    without any module of the JAX package (cudabulletproof_tpu)."""
+    """Every module of the port, and chip_smoke.py, import without jax,
+    without any module of the JAX package (cudabulletproof_tpu) and without
+    the JAX side's root ``benchmarks`` package (whose scripts import jax;
+    the port's own scripts sit in ``cudabulletproof_tpu_torch.benchmarks``
+    under the same names)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cudabulletproof_tpu_torch as pkg\n"
@@ -352,12 +355,16 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "for name in ('models.aggregate', 'utils.profiling', 'bench',\n"
         "             'benchmarks.bench_msm', 'ops.radix16',\n"
-        "             'ops.cuda_radix16', 'benchmarks.bench_radix16'):\n"
+        "             'ops.cuda_radix16', 'benchmarks.bench_radix16',\n"
+        "             'ops.micro', 'ops.cuda_micro',\n"
+        "             'benchmarks.bench_addrate', 'benchmarks._accum_micro',\n"
+        "             'benchmarks._repro_accum3'):\n"
         "    assert 'cudabulletproof_tpu_torch.' + name in sys.modules, name\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules\n"
         "                                        if k.startswith('jax'))\n"
-        "ref = sorted(k for k in sys.modules if k == 'cudabulletproof_tpu'\n"
-        "             or k.startswith('cudabulletproof_tpu.'))\n"
+        "ref = sorted(k for k in sys.modules if k in ('cudabulletproof_tpu',\n"
+        "             'benchmarks') or k.startswith(('cudabulletproof_tpu.',\n"
+        "                                           'benchmarks.')))\n"
         "assert not ref, ref\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
