@@ -53,7 +53,17 @@ Phases, each raising on failure (so the exit code is nonzero):
      defaults (65 windows of 2^16 points, w = 4), and once more, timed and
      logged, at _repro_accum3's shape and inputs; their bound is their
      IMADs (the chain's links; a mixed add per nonzero digit, the fold and
-     the tree's unified adds) over the card's rate.
+     the tree's unified adds) over the card's rate.  The two kernels on
+     the four-lane group law: ge_ladder_win at 1, 3, 7, 8, 9 and 1024
+     points (below, at and past its blocks of 8 points), the prover's
+     counts and 147 and 402 (timed), its first rows the edge points
+     against the edge scalars; ge_bucket_accum at 1000 points (a multiple
+     of no K) for w = 4..8 with mixed, all-zero and all -2^(w-1) digits at
+     threads 32 and 256 with slices 1 and 3, then at each
+     MSM_ACCUM_PLAN entry, 4096 (timed) last.  fe_mul, fe_sq, fe_add,
+     ge_add and ge_double also get, beside the one-call time, the time a
+     launch over a run of 100 launches (CUDA events / count) and the
+     profiler's device time of the kernel itself a launch.
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
@@ -96,11 +106,14 @@ Phases, each raising on failure (so the exit code is nonzero):
      cudabulletproof_tpu_torch --benchmark``, ``python -m
      cudabulletproof_tpu_torch.benchmarks.bench_msm --big``, ``python -m
      cudabulletproof_tpu_torch.bench``, ``python -m
-     cudabulletproof_tpu_torch.benchmarks.bench_radix16`` and the three
+     cudabulletproof_tpu_torch.benchmarks.bench_radix16``, the three
      diagnostic scripts ``bench_addrate`` (its sweep at K = 4096),
      ``_accum_micro`` (its five variants at its defaults, the buckets in
      shared and then in device memory) and ``_repro_accum3`` (its nine
-     variants); each must exit 0 and print its lines (echoed with the
+     variants), and ``bench_group4`` (ge_ladder_win at 147, 402 and 1024
+     points, ge_bucket_accum at each plan entry with its combine's
+     device time, each equal to its twin); each must exit 0 and print its
+     lines (echoed with the
      card's name) with every check passed: the split-half MSM identities at
      2^16 and 2^20, every proof accepted, the bench's MSMs exact, both
      multiply chains equal to Python ints, the add and dbl chains equal to
@@ -154,6 +167,7 @@ from cudabulletproof_tpu_torch import cli, config
 from cudabulletproof_tpu_torch.models import fused, rangeproof as RP
 from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.benchmarks import _accum_micro as AM
+from cudabulletproof_tpu_torch.benchmarks import bench_group4 as G4
 from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
                                            cuda_micro, cuda_radix16,
                                            cuda_sort)
@@ -188,11 +202,28 @@ PROVE_LADDER_SHAPES = (2, 4, 130, 258)
 # the binary ladder's cases; the last (402, the merged batch of 16) is the
 # one its record reports, as for the window ladder
 LADDER_BIN_SHAPES = (1, 4096) + PROVE_LADDER_SHAPES + PT_SHAPES
+# the window ladder's: counts below, at and past its blocks of 8 points,
+# msm_auto's largest ladder (1024), the prover's, then 147 and 402
+LADDER_WIN_SHAPES = (1, 3, 7, 8, 9, 1024) + PROVE_LADDER_SHAPES + PT_SHAPES
 PROVE_GOLDEN = "tests/golden/prove_n64.npz"
 PROVE_REPS = 3
 INVERT_SHAPES = (1, 272, 4096)
 REDUCE_SHAPES = (147, 256, 1000, 4096)
 ACCUM_BASES = 4096
+# the accumulator's edge cases: at 1000 points (a multiple of no K) every
+# window width with mixed, all-zero and all -2^(w-1) digits, at threads 32
+# and 256 with slices 1 and 3 (one pair a digit kind); then each plan entry
+# at its size, the last (4096 at its plan) the one timed
+ACCUM_EDGE_BASES = 1000
+ACCUM_EDGE_SHAPES = {"mixed": (32, 3), "zero": (256, 1), "min": (256, 3)}
+# kernels whose time a launch is also measured over a run of launches
+# (their one-call time is mostly the host's): the CUDA-event time of the
+# run over the count, and the profiler's device time of the kernel itself
+# (by its __global__ name) a launch
+RUN_TIMED = {"fe_mul": "fe_mul_kernel", "fe_sq": "fe_sq_kernel",
+             "fe_add": "fe_add3_kernel", "ge_add": "ge_add_kernel",
+             "ge_double": "ge_double_kernel"}
+RUN_LAUNCHES = 100
 MSM_SIZES = (1 << 10, 1 << 11, 1 << 16, 1 << 20)
 SWEEP_SIZES = (1 << 12, 1 << 13, 1 << 16)
 SWEEP_WINDOWS = (4, 5, 6, 7, 8)
@@ -389,18 +420,6 @@ def cuda_median_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def accum_work(dg: torch.Tensor, n: int, w: int) -> tuple:
-    """(IMADs, bytes) the accumulator needs on these digits: one mixed add
-    per nonzero digit, one weighted fold of 2^(w-1) buckets per window
-    (2 adds a bucket) and the Horner combine; each operand row and digit
-    read once, the result written once."""
-    nw = dg.shape[0]
-    nonzero = int((dg != 0).sum())
-    imads = (nonzero * IMAD_MADD + nw * 2 * (1 << (w - 1)) * IMAD_ADD
-             + nw * (w * IMAD_DBL + IMAD_ADD))
-    return imads, n * PT_BYTES + dg.numel() * 4 + PT_BYTES
-
-
 def seg_scan_adds(heads: np.ndarray, depth: int, lanes: int) -> int:
     """Unified adds of the segmented scan on these heads (sorted order):
     one per element that starts no segment, and one per lane of each
@@ -467,7 +486,8 @@ def kernel_cases(rng, dev):
     def rand_scalars(n):
         vals = [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
                 for _ in range(n)]
-        return np.array([raw_limbs(v) for v in vals], dtype=np.int32)
+        return np.array([raw_limbs(v) for v in vals],
+                        dtype=np.int32).reshape(n, F.L)
 
     cases = {k[0]: [] for k in KERNELS}
     IP_OPERANDS.clear()
@@ -493,12 +513,14 @@ def kernel_cases(rng, dev):
              lambda a=a: F.invert_plain(a),
              m * (254 * IMAD_SQ + 11 * IMAD_MUL), 2 * m * FE_BYTES))
     def ladder_operands(n):
-        """n random rows plus every edge point, against n random scalars
-        plus the edge scalars, repeated to the edge points' count."""
-        edge = edge_points()
-        rows = np.concatenate([rand_pts(n), edge])
-        s = np.concatenate([rand_scalars(n),
-                            np.resize(edge_scalars(), (len(edge), F.L))])
+        """n rows and scalars: the edge points against the edge scalars,
+        paired cyclically over the first (at most 2 x the edge points)
+        rows, then random rows and scalars."""
+        edge, esc = edge_points(), edge_scalars()
+        k = min(n, 2 * len(edge))
+        rows = np.concatenate([np.resize(edge, (k, 4 * F.L)),
+                               rand_pts(n - k)])
+        s = np.concatenate([np.resize(esc, (k, F.L)), rand_scalars(n - k)])
         return C.unflatten(t(rows)), t(s)
 
     for n in PT_SHAPES:
@@ -511,14 +533,12 @@ def kernel_cases(rng, dev):
         cases["ge_double"].append((n, lambda p=p: cuda_curve.double(p),
                                    lambda p=p: C.double_plain(p),
                                    m * IMAD_DBL, 2 * m * PT_BYTES))
-    for n in PROVE_LADDER_SHAPES + PT_SHAPES:
+    for n in LADDER_WIN_SHAPES:
         ps, s = ladder_operands(n)
-        ms = s.shape[0]
         cases["ge_ladder_win"].append(
             (n, lambda p=ps, s=s: cuda_curve.ladder(p, s),
              lambda p=ps, s=s: C.scalarmult_plain(p, s),
-             ms * (267 * IMAD_DBL + 72 * IMAD_ADD),
-             ms * (2 * PT_BYTES + FE_BYTES)))
+             *G4.ladder_work(n)))
     for n in LADDER_BIN_SHAPES:
         ps, s = ladder_operands(n)
         ms = s.shape[0]
@@ -536,20 +556,32 @@ def kernel_cases(rng, dev):
             (n, lambda p=p: cuda_curve.reduce_tiles(p),
              lambda p=p: C.reduce_tiles_plain(p),
              (n - tiles) * IMAD_ADD, (n + tiles) * PT_BYTES))
-    pre = t(rand_pts(ACCUM_BASES))
-    sc = t(np.concatenate([rand_scalars(ACCUM_BASES - len(edge_scalars())),
-                           edge_scalars()]))
-    for w in sorted({4, config.accum_plan(ACCUM_BASES)[0]}):
-        _, threads, slices = config.accum_plan(ACCUM_BASES, w)
-        dg = PP.extract_digits_signed(sc, w)
-        imads, nbytes = accum_work(dg, ACCUM_BASES, w)
+    def accum_case(label, n, dg, w, threads, slices):
+        pre = t(rand_pts(n))
         cases["ge_bucket_accum"].append(
-            (f"{ACCUM_BASES} w={w}",
-             lambda dg=dg, w=w, th=threads, sl=slices:
+            (label, lambda pre=pre, dg=dg, w=w, th=threads, sl=slices:
                  cuda_curve.bucket_accum(pre, dg, w, th, sl),
-             lambda dg=dg, w=w, th=threads, sl=slices:
+             lambda pre=pre, dg=dg, w=w, th=threads, sl=slices:
                  PP.bucket_accum_plain(pre, dg, w, th, sl),
-             imads, nbytes))
+             *G4.accum_work(dg, n, w)))
+
+    def accum_scalars(n):
+        return t(np.concatenate([rand_scalars(n - len(edge_scalars())),
+                                 edge_scalars()]))
+
+    sc = accum_scalars(ACCUM_EDGE_BASES)
+    for w in range(4, 9):
+        mixed = PP.extract_digits_signed(sc, w)
+        for kind, (threads, slices) in ACCUM_EDGE_SHAPES.items():
+            dg = {"mixed": mixed, "zero": torch.zeros_like(mixed),
+                  "min": torch.full_like(mixed, -(1 << (w - 1)))}[kind]
+            accum_case(f"{ACCUM_EDGE_BASES} w={w} {kind} digits, "
+                       f"{threads}x{slices}", ACCUM_EDGE_BASES, dg, w,
+                       threads, slices)
+    for n in sorted(config.MSM_ACCUM_PLAN, key=lambda n: n == ACCUM_BASES):
+        w, threads, slices = config.accum_plan(n)
+        accum_case(f"{n} w={w}", n, PP.extract_digits_signed(
+            accum_scalars(n), w), w, threads, slices)
 
     depth, lanes = 4, 8
     starts = np.zeros(depth * lanes, bool)
@@ -857,8 +889,15 @@ def check_kernels(dev, rate) -> dict:
             plain_ms = cuda_median_ms(plain, reps=1 if slow else 3)
             bound_ms, bound_by = bound(imads, nbytes, rate)
             library_ms = cuda_median_ms(lib[0]) if lib else None
+            run = ""
+            if name in RUN_TIMED:
+                dev_ms = sum(v for k, v in G4.device_ms_by_kernel(
+                    kern, RUN_LAUNCHES).items() if RUN_TIMED[name] in k)
+                run = (f", {G4.run_ms(kern, RUN_LAUNCHES):.4f} ms a launch "
+                       f"over {RUN_LAUNCHES} (device {dev_ms:.4f} ms a "
+                       "launch)")
             log(f"kernel {name:15s} n={label}: equal to plain, {ms:.4f} ms "
-                f"vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                f"vs plain {plain_ms:.3f} ms{run}, bound {bound_ms:.4f} ms "
                 f"({bound_by})" + (f", library {library_ms:.4f} ms"
                                    if lib else ""))
             results[name] = {"max_abs_err": worst, "ms": ms,
@@ -1048,7 +1087,7 @@ def check_msm(points, scalars, ks, rate):
         want = expected_bytes(ks, n)
         for w in SWEEP_WINDOWS:
             dg = PP.extract_digits_signed(s, w)
-            bound_ms, by = bound(*accum_work(dg, n, w), rate)
+            bound_ms, by = bound(*G4.accum_work(dg, n, w), rate)
             shapes = {config.accum_block_shape(n, w, f)
                       for f in SWEEP_POINTS_PER_BUCKET}
             for threads, slices in sorted(shapes):
@@ -1303,6 +1342,9 @@ BENCH_RUNS = (
      ["-m", "cudabulletproof_tpu_torch.benchmarks._repro_accum3",
       ",".join(MC.REPRO_VARIANTS)],
      lambda lines: check_repro_lines(lines)),
+    ("bench_group4",
+     ["-m", "cudabulletproof_tpu_torch.benchmarks.bench_group4"],
+     lambda lines: check_group4_lines(lines)),
 )
 # bench_addrate's default K and the lines of its sweep: (op, lanes,
 # mul_passes, add_passes)
@@ -1437,6 +1479,17 @@ def check_accum_micro_lines(lines) -> None:
     for m in found:
         log(f"_accum_micro {m[1]}: {m[2]} ms against the "
             f"full window's bound {bound_ms:.4f} ms ({by})")
+
+
+def check_group4_lines(lines) -> None:
+    """bench_group4: one line for each ladder size and plan entry."""
+    want = ([("ge_ladder_win", n) for n in G4.LADDER_SIZES]
+            + [("ge_bucket_accum", n) for n in sorted(config.MSM_ACCUM_PLAN)])
+    got = [(m.group(1), int(m.group(2))) for m in
+           (re.match(r"(ge_\w+) n=(\d+) .*\[this\] [\d. ]+ ms.*bound", ln)
+            for ln in lines) if m]
+    if got != want:
+        raise AssertionError(f"bench_group4 printed {got}, expected {want}")
 
 
 def check_repro_lines(lines) -> None:

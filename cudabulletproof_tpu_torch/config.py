@@ -73,13 +73,14 @@ MSM_PALLAS_SORT_BITS = 7
 MSM_SCAN_LANES = 1024
 
 # The accumulator's plan at the padded sizes the port runs: points ->
-# (window bits w, threads a block, blocks a window).  2^12 and 2^13 are the
+# (window bits w, threads a block, blocks a window), a "thread" being a
+# unit of the four lanes that hold a point.  2^12 and 2^13 are the
 # merged batches of 128 and 256 proofs at n = 64, 2^16 the chunk of
 # msm_auto.  Each is the fastest of chip_smoke.py's sweep over w = 4..8 and
 # three block shapes on an H100 (PERF.md).
 MSM_ACCUM_PLAN = {
-    1 << 12: (5, 128, 2),
-    1 << 13: (5, 128, 1),
+    1 << 12: (5, 32, 1),
+    1 << 13: (4, 128, 2),
     1 << 16: (4, 128, 4),
 }
 # Elsewhere (sizes no caller pads to, and the CPU tests' small ones): this

@@ -1,4 +1,4 @@
-// Point kernels of the port, one thread per point.
+// Point kernels of the port.
 //
 //   ge_add_kernel         replaces cudabulletproof_tpu/ops/pallas_curve.py::_add_kernel
 //   ge_double_kernel      replaces pallas_curve.py::_double_kernel
@@ -11,24 +11,34 @@
 // What bounds them on Hopper: integer multiplies.  An add is 9 field
 // multiplies (~4,000 IMADs) against 960 bytes moved; the ladder is ~2,800
 // field-multiply equivalents per point against 400 bytes, so it is
-// compute-bound and, at the verify path's 147 to 402 points, occupies only
-// a few SMs (one warp per 32 points).  The design keeps each point's
-// accumulator in registers and runs the whole scalar multiplication in one
-// thread; parallelism across a point's work, and spreading the verify MSM
-// over more threads, are later changes.
+// compute-bound.  ge_add, ge_double, ge_ladder_bin and ge_reduce run a
+// point's whole operation in one thread (fe25519.cuh's ge_padd / ge_pdbl).
 //
-// The ladder (w = 4 fixed window, the default of scalarmult_raw):
+// The window ladder (w = 4 fixed window, the default of scalarmult_raw)
+// runs on the four-lane group law (fe25519.cuh's ge4_*): a point's four
+// coordinates on four lanes of a warp, one field product a lane a stage.
+// At the verify and prove paths' 2 to 1024 points the card is far from
+// full (one warp a scheduler fills it at ~4,200 points), so what bounds the
+// kernel is the latency of one point's chain of ~340 group operations,
+// each a chain of dependent field multiplies issued by one warp; four
+// lanes a point cut a window (4 doublings and an add) from ~41 multiply
+// latencies to ~11 and spread the points over 4 times as many warps (a
+// block is one warp of 8 points, so 402 points take 51 SMs, not 13).
 //   * table: tab[0] = identity, tab[1] = P, then for j = 2..15
-//     tab[j] = pdbl(tab[j/2]) if j is even, else padd(tab[j-1], P);
+//     tab[j] = pdbl(tab[j/2]) if j is even, else padd(tab[j-1], P), in
+//     shared memory as [16][20 limbs][32 lanes] (40 KB a block): a lane
+//     reads back only the coordinate it wrote, bank-conflict free whatever
+//     the digits of the warp's points;
 //   * 65 windows, most significant first, over the 260-bit radix-2^13
 //     scalar: 4 pdbl, then padd(acc, tab[digit]), always (digit 0 adds the
-//     identity, as the Pallas kernel's one-hot select does).
+//     identity, as the Pallas kernel's one-hot select does);
+//   * points past n run as the identity with a zero scalar and store
+//     nothing: every lane stays, so every group's shuffles are defined.
 // The TPU kernel shifts its scalar register left 4 bits a window because
 // Mosaic has no dynamic lane index; here window w reads value bits
 // 256-4w .. 259-4w directly, and a window that straddles a 13-bit limb
 // boundary takes its high bits from the next limb.  That equals the TPU's
 // digit for scalar limbs in [0, 2^13) (what to_field_limbs produces).
-// The 16-entry table is 5 KB a thread and lives in local memory (L1/L2).
 //
 // The binary ladder (ge_ladder_bin, scalarmult_raw with
 // PALLAS_LADDER_WINDOW = 0): 260 steps over the scalar's bits, most
@@ -59,6 +69,9 @@ namespace {
 constexpr int kThreads = 128;
 // Few points per call: small blocks spread them over more SMs.
 constexpr int kLadderThreads = 32;
+// The window ladder: one warp a block, 8 points of 4 lanes.
+constexpr int kLadderWinThreads = 32;
+constexpr int kLadderWinPoints = kLadderWinThreads / 4;
 constexpr int kWindows = (bp::FE_L * bp::FE_W) / 4;   // 65
 
 __global__ void ge_add_kernel(const int32_t* __restrict__ p,
@@ -91,28 +104,48 @@ __device__ __forceinline__ int ladder_digit(const int32_t* __restrict__ s,
   return bits & 15;
 }
 
-__global__ void ge_ladder_win_kernel(const int32_t* __restrict__ p,
-                                     const int32_t* __restrict__ s,
-                                     int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const int32_t* sc = s + i * bp::FE_L;
-  bp::ge tab[16];
-  tab[0] = bp::ge_identity();
-  tab[1] = bp::ge_load(p + i * 4 * bp::FE_L);
+// The ladder's table in shared memory: entry j, limb i of lane l at
+// [j][i][l].
+__device__ __forceinline__ bp::fe tab_load(int32_t (*tab)[bp::FE_L][kLadderWinThreads],
+                                           int j) {
+  bp::fe r;
+#pragma unroll
+  for (int i = 0; i < bp::FE_L; ++i) r.v[i] = tab[j][i][threadIdx.x];
+  return r;
+}
+
+__device__ __forceinline__ void tab_store(int32_t (*tab)[bp::FE_L][kLadderWinThreads],
+                                          int j, const bp::fe& a) {
+#pragma unroll
+  for (int i = 0; i < bp::FE_L; ++i) tab[j][i][threadIdx.x] = a.v[i];
+}
+
+__global__ void __launch_bounds__(kLadderWinThreads)
+ge_ladder_win_kernel(const int32_t* __restrict__ p,
+                     const int32_t* __restrict__ s,
+                     int32_t* __restrict__ out, int64_t n) {
+  __shared__ int32_t tab[16][bp::FE_L][kLadderWinThreads];
+  const bp::lane4 g = bp::lane4_here();
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kLadderWinPoints) +
+                    threadIdx.x / 4;
+  const bool valid = i < n;
+  const int32_t* sc = s + (valid ? i : 0) * bp::FE_L;
+  const bp::fe base = valid ? bp::fe_load(p + i * 4 * bp::FE_L + g.c * bp::FE_L)
+                            : bp::ge4_identity(g);
+  tab_store(tab, 0, bp::ge4_identity(g));
+  tab_store(tab, 1, base);
 #pragma unroll 1
   for (int j = 2; j < 16; ++j)
-    tab[j] = (j % 2 == 0) ? bp::ge_pdbl(tab[j / 2]) : bp::ge_padd(tab[j - 1], tab[1]);
-  bp::ge acc = bp::ge_identity();
+    tab_store(tab, j, (j % 2 == 0) ? bp::ge4_pdbl(g, tab_load(tab, j / 2))
+                                   : bp::ge4_padd(g, tab_load(tab, j - 1), base));
+  bp::fe acc = bp::ge4_identity(g);
 #pragma unroll 1
   for (int w = 0; w < kWindows; ++w) {
-    acc = bp::ge_pdbl(acc);
-    acc = bp::ge_pdbl(acc);
-    acc = bp::ge_pdbl(acc);
-    acc = bp::ge_pdbl(acc);
-    acc = bp::ge_padd(acc, tab[ladder_digit(sc, w)]);
+#pragma unroll 1
+    for (int r = 0; r < 4; ++r) acc = bp::ge4_pdbl(g, acc);
+    acc = bp::ge4_padd(g, acc, tab_load(tab, valid ? ladder_digit(sc, w) : 0));
   }
-  bp::ge_store(out + i * 4 * bp::FE_L, acc);
+  if (valid) bp::fe_store(out + i * 4 * bp::FE_L + g.c * bp::FE_L, acc);
 }
 
 // acc = bit ? b : acc, limb for limb, without a branch (bit is 0 or 1).
@@ -196,7 +229,7 @@ extern "C" int bp_ge_double(const int32_t* p, int32_t* out, int64_t n,
 extern "C" int bp_ge_ladder_win(const int32_t* p, const int32_t* s,
                                 int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  ge_ladder_win_kernel<<<blocks_for(n, kLadderThreads), kLadderThreads, 0,
+  ge_ladder_win_kernel<<<blocks_for(n, kLadderWinPoints), kLadderWinThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(p, s, out, n);
   return static_cast<int>(cudaGetLastError());
 }

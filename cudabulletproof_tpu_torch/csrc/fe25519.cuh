@@ -262,4 +262,150 @@ static __device__ __noinline__ ge ge_madd(const ge& p, const fe& ypx2,
   return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
 }
 
+// ---------------------------------------------------------------------------
+// The four-lane group law (ge_ladder_win, ge_bucket_accum).
+//
+// A point occupies four consecutive lanes of a warp: lane c (0..3) of the
+// group holds coordinate c (x, y, z, t), 20 limbs in registers.  Each
+// routine runs its field products in stages, one product a lane, and moves
+// operands between stages with __shfl_sync of width 4 under the mask of the
+// group's own four lanes (so groups of one warp may branch apart, as the
+// accumulator's digit-0 skip does).  Every field add, sub, relax and
+// multiply has the operands and op order of ge_padd / ge_pdbl / ge_madd
+// above, so the output limbs are theirs bit for bit; a + b and a - b of one
+// stage run as one fe_addsub with the sign picked per lane.
+//
+// Stages (M a field multiply, S a squaring; the rest adds and shuffles):
+//   ge4_pdbl  S: x^2 | y^2 | z^2 (then 2z^2) | (x+y)^2;
+//             yy - xx on lane 0, xx + yy on lane 1;
+//             M: 2xy*tp | yp*zp | zp*tp | 2xy*yp            (2 deep, was 8)
+//   ge4_padd  M: (y1-x1)(y2-x2) | (y1+x1)(y2+x2) | z1 z2 (then 2 z1 z2) |
+//                t1 2d, then * t2 on lane 3 alone;
+//             M: e f | g h | f g | e h                         (3 deep, was 9)
+//   ge4_madd  M: (y1-x1) ymx2 | (y1+x1) ypx2 | 2 z1 (an add) | t1 td2;
+//             M: e f | g h | f g | e h                         (2 deep, was 7)
+//
+// What bounds them: the IMAD issue of one warp.  A warp instruction still
+// does 32 lanes' work, now a product of each of 8 points rather than a
+// whole add of each of 32, so a point's chain is 3-4 times shorter while
+// the card runs 4 times as many warps for the same points: the gain is
+// latency where the kernels fill few schedulers (the ladder's 147-1024
+// points, the combine's Horner chain), at the price of the adds that every
+// lane of a group repeats and 120-160 shuffles a point operation.
+//
+// These are __forceinline__: each takes and returns one coordinate (80 B),
+// where the one-thread routines above pass 320-byte points by reference.
+
+// This lane's place in its group: c the coordinate, mask the group's lanes.
+struct lane4 {
+  int c;
+  unsigned mask;
+};
+
+__device__ __forceinline__ lane4 lane4_here() {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  return lane4{lane & 3, 0xFu << (lane & 28)};
+}
+
+// Coordinate c of the identity (0, 1, 1, 0).
+__device__ __forceinline__ fe ge4_identity(const lane4& g) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < FE_L; ++i) r.v[i] = (i == 0) && (g.c == 1 || g.c == 2);
+  return r;
+}
+
+// Lane `src` (0..3) of this lane's group's copy of a.
+__device__ __forceinline__ fe fe_shfl(const lane4& g, const fe& a, int src) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < FE_L; ++i) r.v[i] = __shfl_sync(g.mask, a.v[i], src, 4);
+  return r;
+}
+
+// a where pick, else b.
+__device__ __forceinline__ fe fe_sel(bool pick, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < FE_L; ++i) r.v[i] = pick ? a.v[i] : b.v[i];
+  return r;
+}
+
+// fe_sub(a, b) where neg, else fe_add(a, b): the same limbs.
+__device__ __forceinline__ fe fe_addsub(const fe& a, const fe& b, bool neg) {
+  fe r;
+  r.v[0] = a.v[0] + (neg ? FE_KNEG0 - b.v[0] : b.v[0]);
+#pragma unroll
+  for (int i = 1; i < FE_L; ++i) r.v[i] = a.v[i] + (neg ? FE_KNEG - b.v[i] : b.v[i]);
+  fe_relax<2>(r);
+  return r;
+}
+
+// The last stage of ge_padd and ge_madd: lanes 0..3 hold a, b, d, c; with
+// e = b - a, f = d - c, g = d + c, h = b + a, returns lane c's coordinate of
+// (e f, g h, f g, e h).
+__device__ __forceinline__ fe ge4_finish(const lane4& g, const fe& r) {
+  const int k = g.c;
+  const bool x_ba = k == 0 || k == 3;        // first factor from (b, a)
+  const bool y_ba = (k & 1) != 0;            // second factor from (b, a)
+  const fe x1 = fe_shfl(g, r, x_ba ? 1 : 2);
+  const fe x2 = fe_shfl(g, r, x_ba ? 0 : 3);
+  const fe y1 = fe_shfl(g, r, y_ba ? 1 : 2);
+  const fe y2 = fe_shfl(g, r, y_ba ? 0 : 3);
+  return fe_mul(fe_addsub(x1, x2, k != 1), fe_addsub(y1, y2, k == 0));
+}
+
+// ge_padd(p, q) on four lanes: p, q this lane's coordinates of the operands.
+// The first product runs on all four lanes at once (operands picked per
+// lane), the second of c on lane 3 alone.
+__device__ __forceinline__ fe ge4_padd(const lane4& g, const fe& p,
+                                       const fe& q) {
+  const int k = g.c;
+  const fe py = fe_shfl(g, p, 1), px = fe_shfl(g, p, 0);
+  const fe qy = fe_shfl(g, q, 1), qx = fe_shfl(g, q, 0);
+  const fe u = fe_sel(k < 2, fe_addsub(py, px, k == 0), p);
+  const fe v = fe_sel(k < 2, fe_addsub(qy, qx, k == 0),
+                      k == 2 ? q : fe_d2());
+  fe r = fe_mul(u, v);                       // a | b | zz | t1 2d
+  if (k == 3) r = fe_mul(r, q);              // c
+  else if (k == 2) r = fe_add(r, r);         // d
+  return ge4_finish(g, r);
+}
+
+// ge_pdbl(p) on four lanes (t is not read).
+__device__ __forceinline__ fe ge4_pdbl(const lane4& g, const fe& p) {
+  const int k = g.c;
+  const fe px = fe_shfl(g, p, 0), py = fe_shfl(g, p, 1);
+  fe r = fe_sq(fe_sel(k == 3, fe_add(px, py), p));  // xx | yy | zz | (x+y)^2
+  if (k == 2) {                               // zz2
+#pragma unroll
+    for (int i = 0; i < FE_L; ++i) r.v[i] *= 2;
+    fe_relax<2>(r);
+  }
+  // lane 0 zp = yy - xx, lane 1 yp = xx + yy (= yy + xx limb for limb)
+  const fe o = fe_shfl(g, r, k ^ 1);
+  if (k < 2) r = fe_addsub(o, r, k == 0);
+  // lanes: zp | yp | zz2 | (x+y)^2; xy2 = (x+y)^2 - yp, tp = zz2 - zp
+  const bool x_diff = k == 0 || k == 3;      // first factor xy2
+  const bool y_diff = k == 0 || k == 2;      // second factor tp
+  const fe x1 = fe_shfl(g, r, x_diff ? 3 : (k == 1 ? 1 : 0));
+  const fe x2 = fe_shfl(g, r, 1);
+  const fe y1 = fe_shfl(g, r, y_diff ? 2 : (k == 1 ? 0 : 1));
+  const fe y2 = fe_shfl(g, r, 0);
+  return fe_mul(fe_sel(x_diff, fe_sub(x1, x2), x1),
+                fe_sel(y_diff, fe_sub(y1, y2), y1));
+}
+
+// ge_madd on four lanes: p this lane's coordinate of the accumulator, q its
+// operand: ymx2 on lane 0, ypx2 on lane 1, td2 on lane 3 (lane 2's product
+// is discarded for d = 2 z1).
+__device__ __forceinline__ fe ge4_madd(const lane4& g, const fe& p,
+                                       const fe& q) {
+  const int k = g.c;
+  const fe py = fe_shfl(g, p, 1), px = fe_shfl(g, p, 0);
+  fe r = fe_mul(fe_sel(k < 2, fe_addsub(py, px, k == 0), p), q);  // a | b | - | c
+  if (k == 2) r = fe_add(p, p);                                  // d
+  return ge4_finish(g, r);
+}
+
 }  // namespace bp

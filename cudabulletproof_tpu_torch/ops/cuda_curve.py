@@ -107,8 +107,9 @@ def bucket_accum(pre: torch.Tensor, dg: torch.Tensor, w: int, threads: int,
                  slices: int) -> torch.Tensor:
     """The accumulator MSM: pre [n, 80] mixed-add operands, dg [nw, n]
     signed digits (int32, least significant window first) -> [80], the
-    finished sum.  `threads` a block (a power of two in 32..256) and
-    `slices` blocks a window."""
+    finished sum.  `threads` units a block (a power of two in 32..256; a
+    unit is the four lanes that hold a point) and `slices` blocks a
+    window."""
     (pre,) = flat_operands(4 * L, pre)[1]
     if dg.device != pre.device or dg.dtype != torch.int32 or dg.dim() != 2 \
             or dg.shape[1] != pre.shape[0]:

@@ -115,12 +115,13 @@ def madd_plain(p: C.GE, ypx2: torch.Tensor, ymx2: torch.Tensor,
 def bucket_accum_plain(pre: torch.Tensor, dg: torch.Tensor, w: int,
                        threads: int, slices: int) -> torch.Tensor:
     """Plain twin of the ge_bucket_accum kernel: pre [n, 80], dg [nw, n]
-    -> [80], in the kernel's order.  Lane (j, k) is thread k = slice *
-    threads + t of window j; it owns points k, k + K, ... (K = threads *
-    slices) and 2^(w-1) buckets from the identity, folds them from the top
-    (suf += S_b; tot += suf), the block's lanes are halved (lane t + half
-    into lane t), each window's block partials summed in slice order, and
-    the windows combined by Horner from the most significant."""
+    -> [80], in the kernel's order.  Lane (j, k) is unit k = slice *
+    threads + t of window j (a unit: the four lanes that hold a point in
+    the kernel); it owns points k, k + K, ... (K = threads * slices) and
+    2^(w-1) buckets from the identity, folds them from the top (suf += S_b;
+    tot += suf), the block's lanes are halved (lane t + half into lane t),
+    each window's block partials summed in slice order, and the windows
+    combined by Horner from the most significant."""
     L4 = 4 * F.L
     nb = 1 << (w - 1)
     nw, n = dg.shape

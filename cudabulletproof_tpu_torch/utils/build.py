@@ -76,13 +76,13 @@ _lib = None
 build_seconds = None     # wall time of the nvcc run that produced the library
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list:
+    return sorted(Path(csrc).glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(Path(csrc).glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -98,14 +98,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libbp_kernels-{_digest()}.so"
+def library_path(csrc: Path = CSRC) -> Path:
+    return BUILD_DIR / f"libbp_kernels-{_digest(csrc)}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of `csrc` (the package's own by default; another
+    checkout's for an A/B) unless the library for these sources exists."""
     global build_seconds
-    out = library_path()
+    out = library_path(csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -114,9 +115,9 @@ def build() -> Path:
     t0 = time.perf_counter()
     try:
         jobs = []
-        for src in sources():
+        for src in sources(csrc):
             obj = work / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
                    str(src)]
             jobs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -146,16 +147,21 @@ def build() -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library with the entry points' argument types set."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = load(build())
     return _lib
 
 

@@ -128,3 +128,32 @@ def test_profiling_helpers(tmp_path):
     with PR.trace(str(tmp_path)):
         torch.ones(4).sum()
     assert list(tmp_path.iterdir())
+
+
+def test_group4_bench_work_and_build_dirs(monkeypatch, tmp_path):
+    """bench_group4 counts the window ladder's work (267 doublings and 72
+    adds a point) and the accumulator's (a mixed add per nonzero digit, the
+    fold and the combine) as chip_smoke.py reports them, and refuses to run
+    without a card; the build module names another checkout's library by
+    its sources (the same sources, the same library)."""
+    import shutil
+    from cudabulletproof_tpu_torch.benchmarks import bench_group4 as G4
+    from cudabulletproof_tpu_torch.utils import build
+    from cudabulletproof_tpu_torch.utils.profiling import (
+        IMAD_ADD, IMAD_DBL, IMAD_MADD)
+    assert G4.ladder_work(402) == (402 * (267 * IMAD_DBL + 72 * IMAD_ADD),
+                                   402 * (2 * 320 + 80))
+    dg = torch.tensor([[0, 1, -8], [8, 0, 0]], dtype=torch.int32)
+    imads, nbytes = G4.accum_work(dg, 3, 4)
+    assert imads == (3 * IMAD_MADD + 2 * 2 * 8 * IMAD_ADD
+                     + 2 * (4 * IMAD_DBL + IMAD_ADD))
+    assert nbytes == 3 * 320 + 6 * 4 + 320
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert G4.main([]) == 1
+    other = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, other)
+    assert build.library_path(other) == build.library_path()
+    assert [p.name for p in build.sources(other)] == [
+        p.name for p in build.sources()]
+    (other / "curve_kernels.cu").write_text("// edited\n")
+    assert build.library_path(other) != build.library_path()

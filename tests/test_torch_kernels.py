@@ -139,19 +139,43 @@ def test_field_broadcast_and_strides(dev):
     assert torch.equal(TF.sq(t), TF.sq_plain(t))
 
 
-@pytest.mark.parametrize("n", [147, 402])
+# point counts of the window ladder: blocks of 8 points (4 lanes each), so
+# counts below, at and past a block, and the paths' 147 / 402 / 1024
+LADDER_COUNTS = [1, 3, 7, 8, 9, 147, 402, 1024]
+
+
+def _ladder_operands(rng, n, dev):
+    """n weak-limb rows and scalars mod l, the edges first: the identity,
+    the base, the eight small-order points (8-torsion among them) and a row
+    of limbs at 8799 against the scalars 0, 1, l-1, 2^253-1 and every limb
+    8191, paired cyclically over the first 66 rows."""
+    pts = [oracle.IDENTITY, oracle.BASE] + oracle.small_order_points()
+    edge_rows = TC.flatten(TC.from_oracle(pts, dev)).tolist() + [
+        [TF.BOUND] * 80]
+    edge_sc = [_raw(v) for v in (0, 1, oracle.ELL - 1, (1 << 253) - 1)] + [
+        [0x1FFF] * 20]
+    rows = _rand(rng, (n, 80), dev)
+    s = TF.from_ints([int.from_bytes(rng.bytes(32), "little") % oracle.ELL
+                      for _ in range(n)], dev)
+    k = min(n, 66)
+    rows[:k] = torch.tensor([edge_rows[i % len(edge_rows)] for i in range(k)],
+                            dtype=torch.int32, device=dev)
+    s[:k] = torch.tensor([edge_sc[i % len(edge_sc)] for i in range(k)],
+                         dtype=torch.int32, device=dev)
+    return TC.unflatten(rows), s
+
+
+@pytest.mark.parametrize("n", LADDER_COUNTS)
 def test_curve_kernels_equal_twins(dev, n):
     rng = np.random.default_rng(n)
     p = TC.unflatten(_rand(rng, (n, 80), dev))
     q = TC.unflatten(_rand(rng, (n, 80), dev))
-    vals = [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
-            for _ in range(n)]
-    s = TF.from_ints(vals, dev)
+    lp, s = _ladder_operands(rng, n, dev)
     for got, want in ((cuda_curve.add(p, q), TC.add_plain(p, q)),
                       (cuda_curve.double(p), TC.double_plain(p)),
-                      (cuda_curve.ladder(p, s), TC.scalarmult_plain(p, s)),
-                      (cuda_curve.ladder_bin(p, s),
-                       TC.scalarmult_bin_plain(p, s))):
+                      (cuda_curve.ladder(lp, s), TC.scalarmult_plain(lp, s)),
+                      (cuda_curve.ladder_bin(lp, s),
+                       TC.scalarmult_bin_plain(lp, s))):
         assert torch.equal(TC.flatten(got), TC.flatten(want))
 
 
@@ -207,13 +231,21 @@ def test_reduce_kernel_equals_twin(dev, n):
     assert TC.to_oracle(got) == [want]
 
 
-@pytest.mark.parametrize("w", [4, 5, 8])
-def test_bucket_accum_kernel_equals_twin(dev, w):
-    """Weak-limb operand rows and random plus edge scalars (0, 1, l-1,
-    2^253-1, all limbs 8191) at 4096 bases: the kernel's limbs equal the
-    twin's at the plan's block shape and at a small one."""
-    rng = np.random.default_rng(w)
-    n = 4096
+# (w, digits, n) of the accumulator's cases: every window width at 1000
+# points (a multiple of no K = threads * slices) with mixed, all-zero and
+# all -2^(w-1) digits; then each plan entry at its own size
+ACCUM_CASES = [(w, digits, 1000) for w in range(4, 9)
+               for digits in ("mixed", "zero", "min")] + [
+    (w, "mixed", n) for n, (w, _, _) in sorted(config.MSM_ACCUM_PLAN.items())]
+
+
+@pytest.mark.parametrize("w,digits,n", ACCUM_CASES)
+def test_bucket_accum_kernel_equals_twin(dev, w, digits, n):
+    """Weak-limb operand rows; mixed digits from random plus edge scalars
+    (0, 1, l-1, 2^253-1, all limbs 8191), or every digit 0, or every digit
+    -2^(w-1): the kernel's limbs equal the twin's at threads 32 and 256
+    with slices 1 and 3 (at 1000 points), or at the plan's block shape."""
+    rng = np.random.default_rng(w * 7 + n)
     pre = _rand(rng, (n, 80), dev)
     vals = [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
             for _ in range(n - 5)]
@@ -221,7 +253,15 @@ def test_bucket_accum_kernel_equals_twin(dev, w):
     s = torch.cat([TF.from_ints(vals, dev),
                    torch.full((1, 20), 0x1FFF, dtype=torch.int32, device=dev)])
     dg = TP.extract_digits_signed(s, w)
-    for threads, slices in ((32, 3), TM.config.accum_plan(n, w)[1:]):
+    if digits == "zero":
+        dg = torch.zeros_like(dg)
+    elif digits == "min":
+        dg = torch.full_like(dg, -(1 << (w - 1)))
+    if n in config.MSM_ACCUM_PLAN:
+        shapes = [config.accum_plan(n)[1:]]
+    else:
+        shapes = [(32, 1), (32, 3), (256, 1), (256, 3)]
+    for threads, slices in shapes:
         got = cuda_curve.bucket_accum(pre, dg, w, threads, slices)
         assert torch.equal(got, TP.bucket_accum_plain(pre, dg, w, threads,
                                                       slices))
@@ -252,11 +292,17 @@ def test_msm_routes_match_oracle(dev):
          TM.config.MSM_ACCUM_CHUNK) = old
 
 
+@pytest.mark.parametrize("n", LADDER_COUNTS)
 @pytest.mark.parametrize("window", [4, 0])
-def test_ladder_matches_oracle(dev, monkeypatch, window):
+def test_ladder_matches_oracle(dev, monkeypatch, window, n):
+    """Real points times 0, l-1, 2^253-1, a sparse scalar and random ones,
+    against the oracle."""
     monkeypatch.setattr(config, "LADDER_WINDOW", window)
-    pts = [oracle.hash_to_point(b"kern", i) for i in range(3)]
-    scs = [0, oracle.ELL - 1, 0xDEADBEEF << 180]
+    rng = np.random.default_rng(n)
+    pts = [oracle.hash_to_point(b"kern", i) for i in range(n)]
+    scs = [0, oracle.ELL - 1, (1 << 253) - 1, 0xDEADBEEF << 180][:n]
+    scs += [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
+            for _ in range(n - len(scs))]
     got = TC.scalarmult(TC.from_oracle(pts, dev), TF.from_ints(scs, dev))
     assert TC.to_oracle(got) == [k * p for k, p in zip(scs, pts)]
 
