@@ -17,13 +17,18 @@ Phases, each raising on failure (so the exit code is nonzero):
      [depth 64, lanes 1024] (one window at 2^16, runs of equal digits that
      straddle lanes) and [32, 1024] (the B = 1024 batch's windows), and
      small shapes with all heads, no heads and a head at every lane start
-     but one; ge_bucket_fold at 8191 and 2047 rows (w = 13 and 11) and
-     fewer rows than lanes, with the identity, the base and the 8-torsion
-     points among them; sort_hist / sort_rank at 2^16 keys with radix 64
-     and 128 (the 6 + 7 bit passes of w = 13), random, all equal and two
-     values.  fe_inner_product at 1, 255, 256, 257, 10,000, 33,068
-     (tiles share the partial's columns from 32,768 on), 2^17 (the bound)
-     and 2^16 (the bench's, timed), fe_inner_product_batched at B = 1, 3,
+     but one, and [64, 1024] with one head (a run across every lane);
+     ge_bucket_fold at 8191 and 2047 rows (w = 13 and 11) and fewer rows
+     than lanes, with the identity, the base and the 8-torsion points
+     among them, in the JAX package's 128 lanes and then in the card
+     path's config.MSM_FOLD_LANES_CUDA (8191 rows there timed); both also
+     timed a call over a run of 20 calls, with each of their kernels'
+     device time a launch and launches a call (a launch a cross-lane
+     stage); sort_hist / sort_rank at 2^16 keys with radix 64 and 128
+     (the 6 + 7 bit passes of w = 13), random, all equal and two values.
+     fe_inner_product at 1, 255, 256, 257, 10,000, 33,068 (tiles share
+     the partial's columns from 32,768 on), 2^17 (the bound) and 2^16
+     (the bench's, timed), fe_inner_product_batched at B = 1, 3,
      16 with n = 300 and 4096: the partial sums (the wrappers, timed
      against ip_partial_plain) and the public functions' limbs after the
      combine, on random weak limbs with the edge rows among them; their
@@ -111,8 +116,10 @@ Phases, each raising on failure (so the exit code is nonzero):
      ``_accum_micro`` (its five variants at its defaults, the buckets in
      shared and then in device memory) and ``_repro_accum3`` (its nine
      variants), and ``bench_group4`` (ge_ladder_win at 147, 402 and 1024
-     points, ge_bucket_accum at each plan entry with its combine's
-     device time, each equal to its twin); each must exit 0 and print its
+     points, ge_bucket_accum at each plan entry, ge_seg_scan at [64 x
+     1024] and [32 x 1024], ge_bucket_fold at 8191 and 2047 rows in 128
+     and in MSM_FOLD_LANES_CUDA lanes, each with its kernels' device time
+     and equal to its twin); each must exit 0 and print its
      lines (echoed with the
      card's name) with every check passed: the split-half MSM identities at
      2^16 and 2^20, every proof accepted, the bench's MSMs exact, both
@@ -224,6 +231,11 @@ RUN_TIMED = {"fe_mul": "fe_mul_kernel", "fe_sq": "fe_sq_kernel",
              "fe_add": "fe_add3_kernel", "ge_add": "ge_add_kernel",
              "ge_double": "ge_double_kernel"}
 RUN_LAUNCHES = 100
+# kernels of several launches a call (a launch a cross-lane stage): the
+# time a call over a run of calls, and each kernel's device time a launch
+# and launches a call
+SPLIT_TIMED = ("ge_seg_scan", "ge_bucket_fold")
+SPLIT_LAUNCHES = 20
 MSM_SIZES = (1 << 10, 1 << 11, 1 << 16, 1 << 20)
 SWEEP_SIZES = (1 << 12, 1 << 13, 1 << 16)
 SWEEP_WINDOWS = (4, 5, 6, 7, 8)
@@ -237,6 +249,10 @@ NATIVE_MSM_TIMEOUT_S = 60
 SCAN_MSM_SIZES = (1 << 16, 1 << 20)
 SCAN_SHAPES = ((32, 1024, 1 << 11), (64, 1024, 1 << 13))
 FOLD_ROWS = (1, 100, 128, 2047, 8191)
+# the fold's cases: every row count in the JAX package's 128 lanes, then in
+# the card path's config.MSM_FOLD_LANES_CUDA (8191 rows, timed, last)
+FOLD_CASES = ([(m, G4.JAX_FOLD_LANES) for m in FOLD_ROWS]
+              + [(m, config.MSM_FOLD_LANES_CUDA) for m in FOLD_ROWS])
 SORT_KEYS = 1 << 16
 # the field add / sub kernels: element counts, the last the CLI's
 ADD_SHAPES = (1, 255, 257, 10_000)
@@ -420,34 +436,6 @@ def cuda_median_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def seg_scan_adds(heads: np.ndarray, depth: int, lanes: int) -> int:
-    """Unified adds of the segmented scan on these heads (sorted order):
-    one per element that starts no segment, and one per lane of each
-    cross-lane stage that merges (its run flag still 0)."""
-    h = heads.reshape(lanes, depth)
-    adds = int((~h).sum())
-    f = h.any(axis=1)
-    lane = np.arange(lanes)
-    s = 1
-    while s < lanes:
-        adds += int(((lane >= s) & ~f).sum())
-        f = np.where(lane >= s, f | np.roll(f, s), f)
-        s *= 2
-    return adds
-
-
-def fold_work(m: int, lanes: int = 128) -> tuple:
-    """(IMADs, bytes) of the bucket fold of m rows: two adds a padded row,
-    the cross-lane scan, the carry's log2(depth) doublings a lane, one add a
-    lane and the halving; the rows read once, one point written."""
-    depth = cuda_curve.fold_depth(m, lanes)
-    stages = sum(lanes - s for s in (1 << k for k in range(16))
-                 if s < lanes)
-    adds = 2 * depth * lanes + stages + lanes + lanes - 1
-    dbls = (depth.bit_length() - 1) * lanes
-    return adds * IMAD_ADD + dbls * IMAD_DBL, (m + 1) * PT_BYTES
-
-
 def scan_operands(rng, dev, depth: int, lanes: int, heads: np.ndarray):
     """Weak-limb points [depth, 80, lanes] with the identity, the base and
     the 8-torsion points among them, and the head flags [depth, 1, lanes]
@@ -462,12 +450,6 @@ def scan_operands(rng, dev, depth: int, lanes: int, heads: np.ndarray):
     ht = heads.reshape(lanes, depth).T[:, None, :].astype(np.int32)
     return (torch.from_numpy(np.ascontiguousarray(pt)).to(dev),
             torch.from_numpy(np.ascontiguousarray(ht)).to(dev))
-
-
-def sorted_heads(rng, n: int, values: int) -> np.ndarray:
-    """The run starts of n sorted random digits below `values`."""
-    d = np.sort(rng.integers(0, values, size=n))
-    return np.concatenate([[True], d[1:] != d[:-1]])
 
 
 def kernel_cases(rng, dev):
@@ -596,25 +578,31 @@ def kernel_cases(rng, dev):
     patterns.append(("16x1024 heads at lane starts but one", 16, 1024,
                      big_starts))
     patterns.append(("64x1024 runs of ~4096", 64, 1024,
-                     sorted_heads(rng, 1 << 16, 16)))
+                     G4.sorted_heads(rng, 1 << 16, 16)))
+    one_run = np.zeros(1 << 16, bool)
+    one_run[0] = True
+    patterns.append(("64x1024 one run across every lane", 64, 1024,
+                     one_run))
     patterns += [(f"{d}x{ln} w={v.bit_length() - 1}", d, ln,
-                  sorted_heads(rng, d * ln, v)) for d, ln, v in SCAN_SHAPES]
+                  G4.sorted_heads(rng, d * ln, v))
+                 for d, ln, v in SCAN_SHAPES]
     for label, d, ln, heads in patterns:
         pt, ht = scan_operands(rng, dev, d, ln, heads)
         cases["ge_seg_scan"].append(
             (label, lambda pt=pt, ht=ht: cuda_curve.seg_scan(pt, ht),
              lambda pt=pt, ht=ht: PP.seg_scan_plain(pt, ht),
-             seg_scan_adds(heads, d, ln) * IMAD_ADD,
-             d * ln * (2 * PT_BYTES + 4) + ln * PT_BYTES))
-    for m in FOLD_ROWS:
+             *G4.scan_work(heads, d, ln)))
+    for m, lanes in FOLD_CASES:
         rows = rng.integers(0, F.BOUND + 1, size=(m, 4 * F.L),
                             dtype=np.int32)
         edge = edge_points()[:min(m, 10)]                # identity, B, tor
         rows[rng.choice(m, size=len(edge), replace=False)] = edge
         body = t(rows)
         cases["ge_bucket_fold"].append(
-            (m, lambda b=body: cuda_curve.bucket_fold(b),
-             lambda b=body: PP.bucket_fold_plain(b), *fold_work(m)))
+            (f"{m} in {lanes} lanes",
+             lambda b=body, ln=lanes: cuda_curve.bucket_fold(b, ln),
+             lambda b=body, ln=lanes: PP.bucket_fold_plain(b, ln),
+             *G4.fold_work(m, lanes)))
     nblk = SORT_KEYS // SO.BLOCK
     for label, radix, keys in (
             ("radix 128, all equal", 128, np.full(SORT_KEYS, 127)),
@@ -891,11 +879,15 @@ def check_kernels(dev, rate) -> dict:
             library_ms = cuda_median_ms(lib[0]) if lib else None
             run = ""
             if name in RUN_TIMED:
-                dev_ms = sum(v for k, v in G4.device_ms_by_kernel(
+                dev_ms = sum(v[0] for k, v in G4.device_ms_by_kernel(
                     kern, RUN_LAUNCHES).items() if RUN_TIMED[name] in k)
                 run = (f", {G4.run_ms(kern, RUN_LAUNCHES):.4f} ms a launch "
                        f"over {RUN_LAUNCHES} (device {dev_ms:.4f} ms a "
                        "launch)")
+            if name in SPLIT_TIMED:
+                run = (f", {G4.run_ms(kern, SPLIT_LAUNCHES):.4f} ms a call "
+                       f"over {SPLIT_LAUNCHES}" + G4.kernel_names(
+                           G4.device_ms_by_kernel(kern, SPLIT_LAUNCHES)))
             log(f"kernel {name:15s} n={label}: equal to plain, {ms:.4f} ms "
                 f"vs plain {plain_ms:.3f} ms{run}, bound {bound_ms:.4f} ms "
                 f"({bound_by})" + (f", library {library_ms:.4f} ms"
@@ -1482,9 +1474,14 @@ def check_accum_micro_lines(lines) -> None:
 
 
 def check_group4_lines(lines) -> None:
-    """bench_group4: one line for each ladder size and plan entry."""
+    """bench_group4: one line for each ladder size, plan entry, scan shape
+    and fold table (in 128 lanes, then in the card path's lanes)."""
+    fold_layouts = 1 + (config.MSM_FOLD_LANES_CUDA != G4.JAX_FOLD_LANES)
     want = ([("ge_ladder_win", n) for n in G4.LADDER_SIZES]
-            + [("ge_bucket_accum", n) for n in sorted(config.MSM_ACCUM_PLAN)])
+            + [("ge_bucket_accum", n) for n in sorted(config.MSM_ACCUM_PLAN)]
+            + [("ge_seg_scan", d * ln) for d, ln, _ in G4.SCAN_SHAPES]
+            + [("ge_bucket_fold", m) for m in G4.FOLD_ROWS
+               for _ in range(fold_layouts)])
     got = [(m.group(1), int(m.group(2))) for m in
            (re.match(r"(ge_\w+) n=(\d+) .*\[this\] [\d. ]+ ms.*bound", ln)
             for ln in lines) if m]

@@ -69,8 +69,29 @@ MSM_ACCUM_KERNEL = True
 MSM_PALLAS_SORT = False
 MSM_PALLAS_SORT_BITS = 7
 # Lanes of the chunked segmented scan: lane l scans the sorted points
-# [l * depth, (l + 1) * depth), depth = n / lanes.
+# [l * depth, (l + 1) * depth), depth = n / lanes.  The JAX package's
+# layout, on the card too: in bench_group4's sweep on an H100 (PERF.md §6
+# row 14), 4096 lanes took ge_seg_scan from 0.32 to 0.18 ms a window of
+# 2^16 points and 2048 from 0.175 to 0.138 ms at 2^15: ~3 ms of msm_auto's
+# 77-87 ms at 2^16 with the accumulator off, not worth a second layout and
+# its own chunking rule.
 MSM_SCAN_LANES = 1024
+# Lanes of the bucket fold: lane l folds the padded rows [l * depth, (l + 1)
+# * depth).  The JAX package's ``pallas_curve.bucket_fold`` default, which
+# the CPU path keeps (its twin equals the Pallas kernel limb for limb).
+MSM_FOLD_LANES = 128
+# The card path's fold layout (ge_bucket_fold).  Any layout gives the same
+# point, a group sum; the kernel equals its twin limb for limb at the layout
+# it runs.  The fastest of bench_group4's sweep over 128..4096 lanes on an
+# H100 (PERF.md §6 row 15): 0.203 ms for 8191 rows (0.555 at 128 lanes,
+# 0.205 at 2048), 0.157 ms for 2047 (0.220 at 128, 0.175 at 256).
+MSM_FOLD_LANES_CUDA = 1024
+
+
+def fold_lanes(device) -> int:
+    """Lanes of the bucket fold on `device` (a torch.device)."""
+    return MSM_FOLD_LANES_CUDA if device.type == "cuda" else MSM_FOLD_LANES
+
 
 # The accumulator's plan at the padded sizes the port runs: points ->
 # (window bits w, threads a block, blocks a window), a "thread" being a

@@ -1,9 +1,10 @@
 // Kernels of the sort-plus-scan bucket MSM (pippenger.msm_pippenger).
 //
-//   ge_seg_scan_lanes_kernel + ge_seg_scan_carry_kernel
+//   ge_seg_scan_lanes_kernel + ge_lane_scan_stage_kernel (x stages)
 //       replace cudabulletproof_tpu/ops/pallas_curve.py::_seg_scan_kernel
 //       (seg_scan; _lane_scan_incl with head flags)
-//   ge_bucket_fold_lanes_kernel + ge_bucket_fold_finish_kernel
+//   ge_bucket_fold_lanes_kernel + ge_lane_scan_stage_kernel (x stages) +
+//   ge_halve_kernel (x rounds) + ge_halve_tail_kernel
 //       replace pallas_curve.py::_bucket_fold_kernel (bucket_fold)
 //   sort_hist_kernel
 //       replaces cudabulletproof_tpu/ops/pallas_sort.py::_hist_kernel
@@ -15,31 +16,62 @@
 // starts a segment).  Out: the same layout of scan values (lane l scans its
 // chunk alone: a lane whose first element does not start a segment holds
 // chunk-local partials for its leading run) and carry [80, lanes], lane l's
-// exclusive segmented sum of the lanes before it.  The Pallas kernel walks
-// a sequential grid over depth with the [80, lanes] accumulator in VMEM
-// and runs the cross-lane carry in its last step.  Blocks here run in no
-// order and 1024 points (320 KB) exceed a block's shared memory, so:
-//   * kernel 1, one thread per lane (blocks of 32): depth dependent steps,
-//     acc = head ? row : padd(acc, row), each written out; the lane's last
-//     value and "has a head" flag go to a global double buffer;
-//   * kernel 2, one block: the Hillis-Steele scan across lanes of the
-//     Pallas kernel, stage s = 1, 2, 4, ...: lane l >= s whose flag is 0
-//     takes padd(v[l - s], v[l]), and its flag becomes max(f[l], f[l - s]);
-//     each stage reads one buffer and writes the other, a barrier between;
-//     then carry[l] = S[l - 1], the identity for lane 0.
-// The [depth, 80, lanes] layout puts neighbouring lanes on neighbouring
-// addresses, so kernel 1's loads and stores are coalesced.
+// exclusive segmented sum of the lanes before it.
+//   * kernel 1: depth dependent steps a lane, acc = head ? row : padd(acc,
+//     row), each written out; the lane's last value and "has a head" flag
+//     go to a global double buffer;
+//   * the Hillis-Steele scan across lanes of the Pallas kernel, stage s = 1,
+//     2, 4, ...: lane l >= s whose flag is 0 takes padd(v[l - s], v[l]), and
+//     its flag becomes max(f[l], f[l - s]); each stage reads one half of the
+//     buffer and writes the other; at the last stage lane l computes lane l
+//     - 1's value (the identity for lane 0) and writes it as its carry.
 //
 // Bucket fold.  In: body [m, 80], a bucket table in descending bucket
 // order, identity-padded at the front to depth * lanes (depth the power of
 // two at least m / lanes), element (j, l) = padded[l * depth + j].  Out:
 // sum over the padded table of its prefix sums, i.e. sum_b b * S_b.
-//   * kernel 1, one thread per lane: s = padd(s, row); w = padd(w, s) over
-//     the lane's depth rows (front padding read as the identity, no copy);
-//   * kernel 2, one block: the unsegmented cross-lane scan of the s values,
-//     the exclusive carry scaled by depth with log2(depth) dedicated
-//     doublings, added to w, then the lanes halved, lane l + half into
-//     lane l.  Every step in the Pallas kernel's order.
+//   * kernel 1, per lane: s = padd(s, row); w = padd(w, s) over its depth
+//     rows (front padding read as the identity, no copy); w's add of row j
+//     and s's add of row j + 1 are independent and run side by side;
+//   * the unsegmented cross-lane scan of the s values as above; at its last
+//     stage lane l takes the exclusive carry (lane l - 1's value), doubles
+//     it log2(depth) times and adds it to its w;
+//   * the lanes halved, lane l + half into lane l, one launch a round until
+//     2 * kTailUnits lanes are left, then the rest in one block with the
+//     points in shared memory.
+// Every step in the Pallas kernels' order, so the outputs equal the plain
+// twins (pippenger.seg_scan_plain, bucket_fold_plain) limb for limb at the
+// same layout.
+//
+// Design on Hopper.  Every point operation runs on the four-lane group law
+// (fe25519.cuh's ge4_*): a unit of four threads holds a point, thread c its
+// coordinate c, so a unified add is 3 multiply latencies deep (9 on one
+// thread) and a doubling 2 (8).  The head and merge selects are per unit:
+// a unit's four threads share the lane, so a branch around an add splits
+// only whole units, and kernel 1's add runs on every step with the head
+// picking the row after it (one converged multiply stream).  A block is one
+// warp, eight points, so 1024 lanes are 128 blocks over the 132 SMs where
+// the one-thread design ran 32 blocks; each data-parallel step across lanes
+// (a scan stage, a halving round) is its own launch over all the lanes'
+// blocks, issued from the same C entry on the caller's stream (no
+// allocation, no host sync: a CUDA graph can capture it), instead of one
+// block walking every stage.  The stage's points stay in the global double
+// buffer: a stage reads its neighbour's point from another block, and at
+// 1024 lanes the 320 KB buffer lives in L2.  Kernel 1 loads the next row
+// before the current step's add.
+//
+// What bounds them: the latency of one warp's chain, one warp a scheduler
+// at 1024 lanes.  Kernel 1 is depth (scan) or depth + 1 (fold) dependent
+// adds at ~4.2 us a link (an H100: 0.27 ms for the scan's 64 links); each
+// stage and halving round is one add, 5-7 us of device time where every
+// lane adds (~2 us where the flags stop most), and a launch.  More lanes
+// trade chain length for stages: the card path folds in 1024 lanes
+// (config.MSM_FOLD_LANES_CUDA, 8 rows a lane for w = 13, where the JAX
+// package's 128 lanes take 64) and scans in the JAX package's 1024
+// (config.MSM_SCAN_LANES; PERF.md §6 rows 14-15 have the sweep).  ptxas
+// (sm_90a): 168 registers a thread for kernel 1 of the scan and the stage
+// kernel, 200 for kernel 1 of the fold, 128 for the halving kernels (the
+// tail 20 KB of shared memory); no stack, no spills.
 //
 // Counting sort, one LSD pass over keys [nblk, 8, 128] with values below
 // radix <= 256: 1024 (sublane, lane) slots, each with its own counters,
@@ -49,14 +81,9 @@
 // traversal convention of ops/sort.py.  sort_hist counts; sort_rank starts
 // each counter at its base (the exclusive prefix of the counts, computed in
 // torch between the two) and hands out ranks.  A key outside [0, radix)
-// matches no counter: uncounted, rank 0, as in the Pallas kernels.
-//
-// What bounds them on Hopper.  The scan and the fold are chains of unified
-// adds (9 field multiplies, ~4,000 IMADs each) whose length is the depth
-// and log2(lanes): latency, not throughput, at 1024 or 128 threads.  The
-// sort kernels move 4 bytes a key per pass plus the counters, and at 2^16
-// keys are bound by the 1024 threads' dependent read-modify-writes.  These
-// are the simple designs; parallelism within a lane's chain is later work.
+// matches no counter: uncounted, rank 0, as in the Pallas kernels.  They
+// move 4 bytes a key per pass plus the counters, and at 2^16 keys are
+// bound by the 1024 threads' dependent read-modify-writes.
 #include <cuda_runtime.h>
 
 #include "fe25519.cuh"
@@ -64,148 +91,194 @@
 namespace {
 
 constexpr int kRow = 4 * bp::FE_L;     // int32 per point row
-constexpr int kLaneThreads = 32;       // per-lane kernels: spread over SMs
-constexpr int kCrossThreads = 256;     // the one block of a cross-lane pass
+constexpr int kPointThreads = 32;      // a block of the point kernels: 8 units
+constexpr int kTailUnits = 64;         // units of the fold's last block
 constexpr int kSlots = 8 * 128;        // counter slots of the counting sort
 constexpr int kSortThreads = 64;
 
-// Point i of a strided layout: limb c of the 80 at p[c * stride].  No
-// __restrict__: the scratch buffers are written and read in one kernel.
-__device__ __forceinline__ bp::ge ge_ld(const int32_t* p, int64_t stride) {
-  bp::ge r;
+// One coordinate: limb i at p[i * stride].
+__device__ __forceinline__ bp::fe fe_ld(const int32_t* p, int64_t stride) {
+  bp::fe r;
 #pragma unroll
-  for (int i = 0; i < bp::FE_L; ++i) {
-    r.x.v[i] = p[i * stride];
-    r.y.v[i] = p[(bp::FE_L + i) * stride];
-    r.z.v[i] = p[(2 * bp::FE_L + i) * stride];
-    r.t.v[i] = p[(3 * bp::FE_L + i) * stride];
-  }
+  for (int i = 0; i < bp::FE_L; ++i) r.v[i] = p[i * stride];
   return r;
 }
 
-__device__ __forceinline__ void ge_st(int32_t* p, int64_t stride,
-                                      const bp::ge& a) {
+__device__ __forceinline__ void fe_st(int32_t* p, int64_t stride,
+                                      const bp::fe& a) {
 #pragma unroll
-  for (int i = 0; i < bp::FE_L; ++i) {
-    p[i * stride] = a.x.v[i];
-    p[(bp::FE_L + i) * stride] = a.y.v[i];
-    p[(2 * bp::FE_L + i) * stride] = a.z.v[i];
-    p[(3 * bp::FE_L + i) * stride] = a.t.v[i];
-  }
+  for (int i = 0; i < bp::FE_L; ++i) p[i * stride] = a.v[i];
 }
 
-// Inclusive Hillis-Steele scan across the lanes of buf[0] ([2, lanes, 80],
-// the second half scratch), segmented by flags[0] ([2, lanes]) unless flags
-// is null; run by one whole block.  Returns which half holds the result.
-__device__ int lane_scan_incl(int32_t* buf, int32_t* flags, int lanes) {
-  const int64_t half = static_cast<int64_t>(lanes) * kRow;
-  int cur = 0;
-#pragma unroll 1
-  for (int s = 1; s < lanes; s *= 2) {
-    const int32_t* src = buf + cur * half;
-    int32_t* dst = buf + (1 - cur) * half;
-    const int32_t* fsrc = flags ? flags + cur * lanes : nullptr;
-    int32_t* fdst = flags ? flags + (1 - cur) * lanes : nullptr;
-#pragma unroll 1
-    for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
-      const bool merge = l >= s && (!flags || fsrc[l] == 0);
-      bp::ge v = ge_ld(src + static_cast<int64_t>(l) * kRow, 1);
-      if (merge)
-        v = bp::ge_padd(ge_ld(src + static_cast<int64_t>(l - s) * kRow, 1), v);
-      ge_st(dst + static_cast<int64_t>(l) * kRow, 1, v);
-      if (flags) fdst[l] = l >= s ? max(fsrc[l], fsrc[l - s]) : fsrc[l];
-    }
-    __syncthreads();
-    cur = 1 - cur;
-  }
-  return cur;
+// The point (lane of the scan or fold) of this thread's unit.  Blocks are
+// whole units, so a unit's four threads exit together.
+__device__ __forceinline__ int unit_here() {
+  return static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / 4);
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
+// Offset of coordinate c of point l in a [n, 80] row layout.
+__device__ __forceinline__ int64_t row_at(int l, int c) {
+  return static_cast<int64_t>(l) * kRow + c * bp::FE_L;
+}
+
+// A point of unit t in shared memory laid out [20 limbs][4 * units]: lane
+// c of unit t at column 4t + c, so a warp's 32 lanes hit 32 banks.
+__device__ __forceinline__ bp::fe unit_load(const int32_t* sm, int t, int c) {
+  return fe_ld(sm + 4 * t + c, 4 * kTailUnits);
+}
+
+__device__ __forceinline__ void unit_store(int32_t* sm, int t, int c,
+                                           const bp::fe& a) {
+  fe_st(sm + 4 * t + c, 4 * kTailUnits, a);
+}
+
+__global__ void __launch_bounds__(kPointThreads)
 ge_seg_scan_lanes_kernel(const int32_t* __restrict__ pt,
                          const int32_t* __restrict__ ht,
-                         int32_t* __restrict__ out, int32_t* buf,
-                         int32_t* flags, int depth, int lanes) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+                         int32_t* __restrict__ out, int32_t* __restrict__ buf,
+                         int32_t* __restrict__ flags, int depth, int lanes) {
+  const bp::lane4 g = bp::lane4_here();
+  const int l = unit_here();
   if (l >= lanes) return;
-  bp::ge acc = bp::ge_identity();
-  int32_t hh = 0;
+  const int64_t step = static_cast<int64_t>(kRow) * lanes;
+  const int64_t at = static_cast<int64_t>(g.c) * bp::FE_L * lanes + l;
+  bp::fe acc = bp::ge4_identity(g);
+  bp::fe row = fe_ld(pt + at, lanes);
+  int32_t h = ht[l], hh = 0;
 #pragma unroll 1
   for (int j = 0; j < depth; ++j) {
-    const int64_t off = static_cast<int64_t>(j) * kRow * lanes + l;
-    const bp::ge row = ge_ld(pt + off, lanes);
-    const int32_t h = ht[static_cast<int64_t>(j) * lanes + l];
-    acc = h > 0 ? row : bp::ge_padd(acc, row);
-    ge_st(out + off, lanes, acc);
+    bp::fe next = row;
+    int32_t hn = 0;
+    if (j + 1 < depth) {
+      next = fe_ld(pt + (j + 1) * step + at, lanes);
+      hn = ht[static_cast<int64_t>(j + 1) * lanes + l];
+    }
+    acc = bp::fe_sel(h > 0, row, bp::ge4_padd(g, acc, row));
+    fe_st(out + j * step + at, lanes, acc);
     hh = max(hh, h);
+    row = next;
+    h = hn;
   }
-  ge_st(buf + static_cast<int64_t>(l) * kRow, 1, acc);
-  flags[l] = hh;
+  fe_st(buf + row_at(l, g.c), 1, acc);
+  if (g.c == 0) flags[l] = hh;
 }
 
-__global__ void __launch_bounds__(kCrossThreads)
-ge_seg_scan_carry_kernel(int32_t* buf, int32_t* flags,
-                         int32_t* __restrict__ carry, int lanes) {
-  const int cur = lane_scan_incl(buf, flags, lanes);
-  const int32_t* S = buf + cur * static_cast<int64_t>(lanes) * kRow;
+// Lane l's value after the Hillis-Steele stage s over src ([lanes, 80]),
+// segmented by fsrc unless it is null.
+__device__ __forceinline__ bp::fe stage_value(const bp::lane4& g,
+                                              const int32_t* src,
+                                              const int32_t* fsrc, int l,
+                                              int s) {
+  const int32_t* mine = src + row_at(l, g.c);
+  bp::fe v = fe_ld(mine, 1);
+  if (l >= s && (fsrc == nullptr || fsrc[l] == 0))
+    v = bp::ge4_padd(g, fe_ld(mine - static_cast<int64_t>(s) * kRow, 1), v);
+  return v;
+}
+
+// A stage of the cross-lane scan.  Before the last: src -> dst, the flags
+// fsrc -> fdst (when segmented).  The last: lane l's carry, the stage's
+// value of lane l - 1 (the identity for lane 0), to dst in the layout
+// (dpoint, dlimb) (the seg scan's [80, lanes]); or, where w is given (the
+// fold), the carry doubled dbls times and added to w[l] in place.
+__global__ void __launch_bounds__(kPointThreads)
+ge_lane_scan_stage_kernel(const int32_t* __restrict__ src,
+                          const int32_t* __restrict__ fsrc,
+                          int32_t* __restrict__ dst,
+                          int32_t* __restrict__ fdst, int32_t* w, int s,
+                          int lanes, int last, int64_t dpoint, int64_t dlimb,
+                          int dbls) {
+  const bp::lane4 g = bp::lane4_here();
+  const int l = unit_here();
+  if (l >= lanes) return;
+  if (!last) {
+    fe_st(dst + row_at(l, g.c), 1, stage_value(g, src, fsrc, l, s));
+    if (fsrc != nullptr && g.c == 0)
+      fdst[l] = l >= s ? max(fsrc[l], fsrc[l - s]) : fsrc[l];
+    return;
+  }
+  bp::fe e = l == 0 ? bp::ge4_identity(g) : stage_value(g, src, fsrc, l - 1, s);
+  if (w == nullptr) {
+    fe_st(dst + l * dpoint + g.c * bp::FE_L * dlimb, dlimb, e);
+    return;
+  }
 #pragma unroll 1
-  for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
-    const bp::ge c = l == 0 ? bp::ge_identity()
-                            : ge_ld(S + static_cast<int64_t>(l - 1) * kRow, 1);
-    ge_st(carry + l, lanes, c);
-  }
+  for (int k = 0; k < dbls; ++k) e = bp::ge4_pdbl(g, e);
+  int32_t* mine = w + row_at(l, g.c);
+  fe_st(mine, 1, bp::ge4_padd(g, fe_ld(mine, 1), e));
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
-ge_bucket_fold_lanes_kernel(const int32_t* __restrict__ body, int32_t* buf,
-                            int32_t* wacc, int64_t m, int depth, int lanes) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kPointThreads)
+ge_bucket_fold_lanes_kernel(const int32_t* __restrict__ body,
+                            int32_t* __restrict__ buf,
+                            int32_t* __restrict__ wacc, int64_t m, int depth,
+                            int lanes) {
+  const bp::lane4 g = bp::lane4_here();
+  const int l = unit_here();
   if (l >= lanes) return;
   const int64_t pad = static_cast<int64_t>(depth) * lanes - m;
-  bp::ge s = bp::ge_identity();
-  bp::ge w = bp::ge_identity();
+  const int64_t e0 = static_cast<int64_t>(l) * depth;
+  auto row = [&](int j) {
+    const int64_t e = e0 + j;
+    return e < pad ? bp::ge4_identity(g)
+                   : fe_ld(body + (e - pad) * kRow + g.c * bp::FE_L, 1);
+  };
+  bp::fe s = bp::ge4_padd(g, bp::ge4_identity(g), row(0));
+  bp::fe w = bp::ge4_identity(g);
+  bp::fe p = depth > 1 ? row(1) : s;
 #pragma unroll 1
-  for (int j = 0; j < depth; ++j) {
-    const int64_t e = static_cast<int64_t>(l) * depth + j;
-    const bp::ge p = e < pad ? bp::ge_identity()
-                             : ge_ld(body + (e - pad) * kRow, 1);
-    s = bp::ge_padd(s, p);
-    w = bp::ge_padd(w, s);
+  for (int j = 1; j < depth; ++j) {
+    const bp::fe next = j + 1 < depth ? row(j + 1) : p;
+    const bp::fe w2 = bp::ge4_padd(g, w, s);       // w after row j - 1
+    s = bp::ge4_padd(g, s, p);                     // s after row j
+    w = w2;
+    p = next;
   }
-  ge_st(buf + static_cast<int64_t>(l) * kRow, 1, s);
-  ge_st(wacc + static_cast<int64_t>(l) * kRow, 1, w);
+  w = bp::ge4_padd(g, w, s);
+  fe_st(buf + row_at(l, g.c), 1, s);
+  fe_st(wacc + row_at(l, g.c), 1, w);
 }
 
-__global__ void __launch_bounds__(kCrossThreads)
-ge_bucket_fold_finish_kernel(int32_t* buf, const int32_t* wacc,
-                             int32_t* __restrict__ out, int depth,
-                             int lanes) {
-  const int cur = lane_scan_incl(buf, nullptr, lanes);
-  const int64_t half_buf = static_cast<int64_t>(lanes) * kRow;
-  const int32_t* incl = buf + cur * half_buf;
-  int32_t* r = buf + (1 - cur) * half_buf;
-#pragma unroll 1
-  for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
-    bp::ge excl = l == 0 ? bp::ge_identity()
-                         : ge_ld(incl + static_cast<int64_t>(l - 1) * kRow, 1);
-#pragma unroll 1
-    for (int k = depth; k > 1; k /= 2) excl = bp::ge_pdbl(excl);
-    ge_st(r + static_cast<int64_t>(l) * kRow, 1,
-          bp::ge_padd(ge_ld(wacc + static_cast<int64_t>(l) * kRow, 1), excl));
+// One halving round in place: lane l < half takes padd(r[l], r[l + half]);
+// no other lane of the round touches either.
+__global__ void __launch_bounds__(kPointThreads)
+ge_halve_kernel(int32_t* r, int half) {
+  const bp::lane4 g = bp::lane4_here();
+  const int l = unit_here();
+  if (l >= half) return;
+  int32_t* mine = r + row_at(l, g.c);
+  fe_st(mine, 1, bp::ge4_padd(g, fe_ld(mine, 1),
+                              fe_ld(mine + static_cast<int64_t>(half) * kRow,
+                                    1)));
+}
+
+// The last rounds, from `live` <= 2 * kTailUnits lanes of r down to one, in
+// one block with the points in shared memory; the result to out [80].
+__global__ void __launch_bounds__(4 * kTailUnits)
+ge_halve_tail_kernel(const int32_t* __restrict__ r, int32_t* __restrict__ out,
+                     int live) {
+  __shared__ int32_t sm[bp::FE_L * 4 * kTailUnits];
+  const bp::lane4 g = bp::lane4_here();
+  const int t = threadIdx.x / 4;
+  int half = live / 2;
+  if (half == 0) {
+    if (t == 0) fe_st(out + g.c * bp::FE_L, 1, fe_ld(r + row_at(0, g.c), 1));
+    return;
   }
+  if (t < half)
+    unit_store(sm, t, g.c,
+               bp::ge4_padd(g, fe_ld(r + row_at(t, g.c), 1),
+                            fe_ld(r + row_at(t + half, g.c), 1)));
   __syncthreads();
 #pragma unroll 1
-  for (int half = lanes / 2; half > 0; half /= 2) {
-    // lane l reads lanes l and l + half and writes lane l: no other lane
-    // of this round touches either
-#pragma unroll 1
-    for (int l = threadIdx.x; l < half; l += blockDim.x)
-      ge_st(r + static_cast<int64_t>(l) * kRow, 1,
-            bp::ge_padd(ge_ld(r + static_cast<int64_t>(l) * kRow, 1),
-                        ge_ld(r + static_cast<int64_t>(l + half) * kRow, 1)));
+  for (half /= 2; half > 0; half /= 2) {
+    if (t < half)
+      unit_store(sm, t, g.c,
+                 bp::ge4_padd(g, unit_load(sm, t, g.c),
+                              unit_load(sm, t + half, g.c)));
     __syncthreads();
   }
-  if (threadIdx.x == 0) ge_st(out, 1, ge_ld(r, 1));
+  if (t == 0) fe_st(out + g.c * bp::FE_L, 1, unit_load(sm, 0, g.c));
 }
 
 __global__ void __launch_bounds__(kSortThreads)
@@ -249,6 +322,30 @@ unsigned int blocks_for(int64_t n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
+// The cross-lane scan of buf's first half ([2, lanes, 80]), segmented by
+// flags' first half ([2, lanes]) unless flags is null: one launch a stage
+// s = 1, 2, 4, ... < lanes, the halves alternating, the last stage as
+// ge_lane_scan_stage_kernel says.
+cudaError_t lane_scan(int32_t* buf, int32_t* flags, int lanes, int32_t* dst,
+                      int64_t dpoint, int64_t dlimb, int32_t* w, int dbls,
+                      cudaStream_t st) {
+  const int64_t half = static_cast<int64_t>(lanes) * kRow;
+  const unsigned int blocks = blocks_for(4LL * lanes, kPointThreads);
+  int cur = 0, s = 1;
+  for (; 2 * s < lanes; s *= 2, cur = 1 - cur) {
+    ge_lane_scan_stage_kernel<<<blocks, kPointThreads, 0, st>>>(
+        buf + cur * half, flags ? flags + cur * lanes : nullptr,
+        buf + (1 - cur) * half, flags ? flags + (1 - cur) * lanes : nullptr,
+        nullptr, s, lanes, 0, kRow, 1, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  ge_lane_scan_stage_kernel<<<blocks, kPointThreads, 0, st>>>(
+      buf + cur * half, flags ? flags + cur * lanes : nullptr, dst, nullptr,
+      w, s, lanes, 1, dpoint, dlimb, dbls);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // pt [depth, 80, lanes], ht [depth, lanes] -> out [depth, 80, lanes],
@@ -262,12 +359,13 @@ extern "C" int bp_ge_seg_scan(const int32_t* pt, const int32_t* ht,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int d = static_cast<int>(depth), l = static_cast<int>(lanes);
-  ge_seg_scan_lanes_kernel<<<blocks_for(l, kLaneThreads), kLaneThreads, 0,
-                             st>>>(pt, ht, out, buf, flags, d, l);
-  cudaError_t err = cudaGetLastError();
+  ge_seg_scan_lanes_kernel<<<blocks_for(4 * lanes, kPointThreads),
+                             kPointThreads, 0, st>>>(pt, ht, out, buf, flags,
+                                                     d, l);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ge_seg_scan_carry_kernel<<<1, kCrossThreads, 0, st>>>(buf, flags, carry, l);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lane_scan(buf, flags, l, carry, 1, lanes, nullptr,
+                                    0, st));
 }
 
 // body [m, 80] -> out [80]; depth and lanes powers of two with depth * lanes
@@ -280,12 +378,23 @@ extern "C" int bp_ge_bucket_fold(const int32_t* body, int32_t* buf,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int d = static_cast<int>(depth), l = static_cast<int>(lanes);
-  ge_bucket_fold_lanes_kernel<<<blocks_for(l, kLaneThreads), kLaneThreads, 0,
-                                st>>>(body, buf, wacc, m, d, l);
+  ge_bucket_fold_lanes_kernel<<<blocks_for(4 * lanes, kPointThreads),
+                                kPointThreads, 0, st>>>(body, buf, wacc, m, d,
+                                                        l);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ge_bucket_fold_finish_kernel<<<1, kCrossThreads, 0, st>>>(buf, wacc, out, d,
-                                                            l);
+  int dbls = 0;
+  for (int k = d; k > 1; k /= 2) ++dbls;
+  err = lane_scan(buf, nullptr, l, nullptr, 0, 0, wacc, dbls, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int live = l;
+  for (; live > 2 * kTailUnits; live /= 2) {
+    ge_halve_kernel<<<blocks_for(2LL * live, kPointThreads), kPointThreads,
+                      0, st>>>(wacc, live / 2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ge_halve_tail_kernel<<<1, 4 * kTailUnits, 0, st>>>(wacc, out, live);
   return static_cast<int>(cudaGetLastError());
 }
 

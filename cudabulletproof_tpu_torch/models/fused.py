@@ -223,12 +223,22 @@ def _assemble_bases(gp: torch.Tensor, n: int, pts: C.GE) -> C.GE:
     return M.concat_ge(*_unpack_gens(gp, n), flat)
 
 
+def _verify_each(blobs: torch.Tensor, rnd: torch.Tensor, gp: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """blobs uint8 [B, (npts+5)*32], rnd [B, 2, SL] -> bool [B]: each
+    proof's verdict on its own MSM (the JAX package's ``_verify_fn`` body,
+    vmapped over the proofs by ``_batch_verify_fn``)."""
+    valid, scalars, pts = _verify_parts(blobs, rnd, gp, n)
+    res = [C.is_identity(C.mul8(_msm_point(
+        _assemble_bases(gp, n, C.GE(*(c[i] for c in pts))), scalars[i])))
+        for i in range(blobs.shape[0])]
+    return valid & torch.stack(res)
+
+
 def _verify_one(blob: torch.Tensor, rnd: torch.Tensor, gp: torch.Tensor,
                 n: int) -> torch.Tensor:
     """blob uint8 [(npts+5)*32], rnd [2, SL] -> bool tensor."""
-    valid, scalars, pts = _verify_parts(blob[None], rnd[None], gp, n)
-    res = C.mul8(_msm_point(_assemble_bases(gp, n, pts), scalars[0]))
-    return valid[0] & C.is_identity(res)
+    return _verify_each(blob[None], rnd[None], gp, n)[0]
 
 
 def _batch_verify_merged(blobs: torch.Tensor, rnd: torch.Tensor,
@@ -479,10 +489,12 @@ def verify(proof: RangeProof, gens: Generators | None = None, rnd=None,
     return bool(_verify_one(blob, weights, gens.pack(proof.n), proof.n))
 
 
-def batch_verify(proofs, gens: Generators | None = None, rnd=None,
-                 device="cuda") -> bool:
-    """Verify same-size proofs with ONE merged MSM (each proof keeps its own
-    challenge stream and weights), on `gens.device`, else on `device`.  rnd:
+def batch_verify(proofs, gens: Generators | None = None, merged: bool = True,
+                 rnd=None, device="cuda") -> bool:
+    """Verify same-size proofs (each keeps its own challenge stream and
+    weights), on `gens.device`, else on `device`.  merged=True (default):
+    ONE merged MSM for the batch; merged=False: each proof its own MSM, the
+    AND of the verdicts (the JAX package's vmapped verifier).  rnd:
     optional 2 weights per proof."""
     if not proofs:
         return True
@@ -494,4 +506,6 @@ def batch_verify(proofs, gens: Generators | None = None, rnd=None,
     blobs = torch.from_numpy(np.stack([_proof_blob(p) for p in proofs]))
     blobs = blobs.to(gens.device)
     weights = _rlc_weights(rnd, len(proofs), gens.device)
+    if not merged:
+        return bool(_verify_each(blobs, weights, gens.pack(n), n).all())
     return bool(_batch_verify_merged(blobs, weights, gens.pack(n), n))

@@ -305,9 +305,10 @@ def bucket_fold(body: torch.Tensor, lanes: int = 128) -> torch.Tensor:
 
 def _bucket_suffix_fold(buckets: C.GE, nb: int) -> C.GE:
     """sum_b b * S_b over buckets 1..nb-1 of GE [nb + 1]: the table in
-    descending order through the bucket fold."""
+    descending order through the bucket fold, in the device's layout
+    (``config.fold_lanes``)."""
     body = C.flatten(buckets)[1:nb].flip(0)
-    return C.unflatten(bucket_fold(body))
+    return C.unflatten(bucket_fold(body, config.fold_lanes(body.device)))
 
 
 def _heads(d_sorted: torch.Tensor) -> torch.Tensor:

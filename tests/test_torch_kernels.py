@@ -407,13 +407,17 @@ def _scan_operands(rng, depth, lanes, dev, heads=None, buckets=None):
 
 
 def _head_patterns(depth, lanes):
-    """All heads; no heads; a head at every lane start but lane 1's."""
+    """All heads; no heads; a head at every lane start but lane 1's; one
+    head, at the first element (a run of equal digits across every lane)."""
     n = depth * lanes
     starts = np.zeros(n, bool)
     starts[::depth] = True
-    starts[depth] = False
+    if lanes > 1:
+        starts[depth] = False
+    single = np.zeros(n, bool)
+    single[0] = True
     return {"all": np.ones(n, bool), "none": np.zeros(n, bool),
-            "starts": starts}
+            "starts": starts, "single": single}
 
 
 @pytest.mark.parametrize("depth,lanes,buckets", [
@@ -428,8 +432,9 @@ def test_seg_scan_kernel_equals_twin(dev, depth, lanes, buckets):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("pattern", ["all", "none", "starts"])
-@pytest.mark.parametrize("depth,lanes", [(4, 8), (16, 1024)])
+@pytest.mark.parametrize("pattern", ["all", "none", "starts", "single"])
+@pytest.mark.parametrize("depth,lanes", [(4, 8), (16, 1024), (64, 1024),
+                                         (1, 1), (3, 1), (1, 2), (2, 5)])
 def test_seg_scan_kernel_head_patterns(dev, depth, lanes, pattern):
     rng = np.random.default_rng(lanes)
     pt, ht = _scan_operands(rng, depth, lanes, dev,
@@ -438,8 +443,13 @@ def test_seg_scan_kernel_head_patterns(dev, depth, lanes, pattern):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("m,lanes", [(8191, 128), (2047, 128), (100, 128),
-                                     (128, 128), (1, 128), (15, 4), (23, 8)])
+@pytest.mark.parametrize("m,lanes", [
+    (8191, 128), (2047, 128), (100, 128), (128, 128), (1, 128), (15, 4),
+    (23, 8), (1, 1), (7, 1), (3, 2), (129, 256),
+    # the card path's layout, and the layouts around it; lanes past the
+    # halving's last block (128 points) run its rounds as launches
+    (8191, config.MSM_FOLD_LANES_CUDA), (2047, config.MSM_FOLD_LANES_CUDA),
+    (8191, 512), (2047, 2048), (8191, 4096), (100, 1024)])
 def test_bucket_fold_kernel_equals_twin(dev, m, lanes):
     """Weak-limb rows with the identity, the base and the 8-torsion points
     among them: w = 13 and 11 tables, fewer rows than lanes, as many."""
@@ -449,6 +459,43 @@ def test_bucket_fold_kernel_equals_twin(dev, m, lanes):
     rows[-min(m, len(tor)):] = TC.flatten(TC.from_oracle(tor[:m], dev))
     got = cuda_curve.bucket_fold(rows, lanes)
     assert torch.equal(got, TP.bucket_fold_plain(rows, lanes))
+
+
+@pytest.mark.parametrize("table", ["one point", "one row"])
+@pytest.mark.parametrize("lanes", [128, config.MSM_FOLD_LANES_CUDA])
+def test_bucket_fold_kernel_edge_tables(dev, lanes, table):
+    """8191 rows: every row the same point (one run across every lane), or
+    every row the identity but the last: limb for limb the twin, and the
+    oracle's sum_b b * S_b as a point."""
+    m = 8191
+    p = oracle.hash_to_point(b"fold", 0)
+    if table == "one point":
+        pts, want = [p] * m, (m * (m + 1) // 2) * p
+    else:
+        pts, want = [oracle.IDENTITY] * (m - 1) + [p], p
+    rows = TC.flatten(TC.from_oracle(pts, dev))
+    got = cuda_curve.bucket_fold(rows, lanes)
+    assert torch.equal(got, TP.bucket_fold_plain(rows, lanes))
+    assert TC.to_oracle(TC.unflatten(got)) == [want]
+
+
+def test_bucket_fold_layouts_agree_on_curve_points(dev):
+    """On curve points ((i+1) B, the identity and the 8-torsion points
+    among them) the card path's layout and the JAX package's fold to the
+    same point, the oracle's sum_b b * S_b."""
+    m = 2047
+    pts = [oracle.IDENTITY] + oracle.small_order_points()
+    acc = oracle.IDENTITY
+    while len(pts) < m:
+        acc = acc + oracle.BASE
+        pts.append(acc)
+    want = oracle.IDENTITY
+    for b, q in zip(range(m, 0, -1), pts):
+        want = want + b * q
+    rows = TC.flatten(TC.from_oracle(pts, dev))
+    for lanes in (128, config.MSM_FOLD_LANES_CUDA, 2048):
+        got = TC.unflatten(cuda_curve.bucket_fold(rows, lanes))
+        assert TC.to_oracle(got) == [want], lanes
 
 
 @pytest.mark.parametrize("keys", ["random", "equal", "two"])

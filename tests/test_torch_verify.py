@@ -248,6 +248,34 @@ def test_batch_verify_matches_jax_and_native(setup, n):
                              setup[8]["proofs"][0]]) is False
 
 
+@pytest.mark.parametrize("tampered_at", [None, 0, 1, 2])
+def test_unmerged_batch_verify_matches_jax(setup, tampered_at):
+    """merged=False: each proof verified on its own MSM with its own
+    weights, the AND of the verdicts.  The 3 honest proofs of n = 4 are
+    accepted, as by merged=True, the JAX package's verdict of each and its
+    own ``fused.batch_verify``; a tampered proof (t_hat + 1, A of small
+    order, S non-canonical) at each position sinks the batch, as the JAX
+    verdict of that proof is False."""
+    n = golden.FUSED_N
+    s = setup[n]
+    proofs, weights = _cases(s, n)["verdicts"]
+    ref = _jax_reference(setup, n)["verdicts"]
+    batch, pairs, jax_verdicts = proofs[:3], weights[:3], list(ref[:3])
+    if tampered_at is not None:
+        bad = {0: 3, 1: 6, 2: 7}[tampered_at]    # the tamper() order
+        batch[tampered_at] = proofs[bad]
+        pairs[tampered_at] = weights[bad]
+        jax_verdicts[tampered_at] = ref[bad]
+    ints = [w for pair in pairs for w in pair]
+    got = TFU.batch_verify(batch, s["gens"], merged=False, rnd=ints)
+    want = all(bool(v) for v in jax_verdicts)
+    assert want is (tampered_at is None)
+    assert got is want
+    if tampered_at is None:
+        assert TFU.batch_verify(batch, s["gens"], rnd=ints) is True
+        assert bool(s["ref"]["fused_batch"][0]) is True
+
+
 def test_explicit_weights(setup):
     s = setup[4]
     proof = s["proofs"][2]
