@@ -3,6 +3,7 @@
 GPU with sm_90a (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR    # + the call A/B against DIR
 
 Phases, each raising on failure (so the exit code is nonzero):
   1. device: require CUDA; print the card's name and power limit.
@@ -68,7 +69,15 @@ Phases, each raising on failure (so the exit code is nonzero):
      MSM_ACCUM_PLAN entry, 4096 (timed) last.  fe_mul, fe_sq, fe_add,
      ge_add and ge_double also get, beside the one-call time, the time a
      launch over a run of 100 launches (CUDA events / count) and the
-     profiler's device time of the kernel itself a launch.
+     profiler's device time of the kernel itself a launch.  ge_add (402
+     points) and fe_mul (272 elements), which read their operands in
+     place, also run on every layout the paths hand them before the timed
+     case: coordinate views of an add's [n, 80] output, the [:n] / [n:]
+     halves of 2n rows (curve.tree_reduce's), one point or one element
+     broadcast as [20] and as [1, 20], a [4, 5] batch and a transposed
+     batch (copied first); and beside their times, one torch.add of two
+     [n, 20] tensors timed the same way (a host floor, not their
+     function).
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
@@ -146,12 +155,23 @@ Phases, each raising on failure (so the exit code is nonzero):
      torch profiler's view of one verify, one prove, one msm_auto at 2^16
      with the accumulator off, one host prove and one host verify at
      n = 64.
+ 9b. with ``--against DIR`` (the root of another checkout, such as the
+     parent commit unpacked with git archive): ``bench_calls --against
+     DIR`` (ge_add at 402 points, fe_mul at 272 and 10,000 elements,
+     fe_sq, fe_add and ge_double: a call, a launch over 100, device time,
+     allocations a call, beside a torch.add floor; the walls of the CLI's
+     --benchmark, host prove, msm_auto 2^11 and one fused verify) in turns
+     (DIR, this, this, DIR), each turn a process at its checkout's root
+     with its own wrappers and kernels: every output the same in every
+     turn, and this checkout's ge_add and fe_mul one kernel and one
+     allocation a call.
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import hashlib
@@ -231,6 +251,9 @@ RUN_TIMED = {"fe_mul": "fe_mul_kernel", "fe_sq": "fe_sq_kernel",
              "fe_add": "fe_add3_kernel", "ge_add": "ge_add_kernel",
              "ge_double": "ge_double_kernel"}
 RUN_LAUNCHES = 100
+# kernels that read their operands in place: their layouts are checked and
+# a torch.add floor is timed beside them
+IN_PLACE = ("ge_add", "fe_mul")
 # kernels of several launches a call (a launch a cross-lane stage): the
 # time a call over a run of calls, and each kernel's device time a launch
 # and launches a call
@@ -713,8 +736,54 @@ def kernel_cases(rng, dev):
                      lambda a=a, b=b, r=reps, k=kern: k(a, b, r),
                      lambda a=a, b=b, r=reps, p=plain: p(a, b, r),
                      m * reps * imad, 3 * m * row_bytes))
+    in_place_cases(cases, t, rand_fe, rand_pts)
     micro_cases(cases, t, rand_pts)
     return cases
+
+
+def in_place_cases(cases: dict, t, rand_fe, rand_pts) -> None:
+    """ge_add at PT_SHAPES[-1] and fe_mul at FE_SHAPES[-1] on the layouts
+    their wrappers read in place (and a transposed batch, copied first),
+    before each one's timed case."""
+    n, m = PT_SHAPES[-1], FE_SHAPES[-1]
+    p, q = C.unflatten(t(rand_pts(n))), C.unflatten(t(rand_pts(n)))
+    both = C.unflatten(t(rand_pts(2 * n)))
+    base = C.unflatten(t(edge_points()[1]))                 # one point [20]
+    grid = [C.unflatten(t(rand_pts(20).reshape(4, 5, -1))) for _ in "pq"]
+    adds = [
+        (f"{n}, views of an add's output",
+         C.GE(*cuda_curve.add(p, q)), C.GE(*cuda_curve.add(q, p))),
+        (f"{n}, halves of {2 * n} rows", C.GE(*(c[:n] for c in both)),
+         C.GE(*(c[n:] for c in both))),
+        (f"{n} against one point [20]", p, base),
+        (f"{n} against one point [1, 20]", p, C.GE(*(c[None]
+                                                    for c in base))),
+        ("[4, 5] batch", *grid),
+        ("[5, 4] transposed batch (copied)",
+         *(C.GE(*(c.transpose(0, 1) for c in g)) for g in grid))]
+    for label, a, b in adds:
+        k = a.x.numel() // F.L
+        cases["ge_add"].insert(-1, (label,
+                                    lambda a=a, b=b: cuda_curve.add(a, b),
+                                    lambda a=a, b=b: C.add_plain(a, b),
+                                    k * IMAD_ADD, 3 * k * PT_BYTES))
+    pts = C.unflatten(t(rand_pts(2 * m)))
+    d2 = F.from_int(oracle.D2, device=pts.x.device)
+    flat = t(rand_fe(20).reshape(4, 5, F.L))
+    muls = [(f"{m}, coordinate views", pts.x[:m], pts.t[:m]),
+            (f"{m}, halves of {2 * m} coordinate rows", pts.y[:m],
+             pts.y[m:]),
+            (f"{m} x a [20] constant", pts.z[:m], d2),
+            (f"{m} x a [1, 20] constant", d2[None], pts.z[m:]),
+            ("[4, 5] batch", flat, pts.x[:20].reshape(4, 5, F.L)),
+            ("[5, 4] transposed batch (copied)", flat.transpose(0, 1),
+             flat.transpose(0, 1).flip(0))]
+    for label, a, b in muls:
+        k = max(a.numel(), b.numel()) // F.L
+        cases["fe_mul"].insert(-1, (label,
+                                    lambda a=a, b=b: cuda_field.mul(a, b),
+                                    lambda a=a, b=b: F.mul_plain(a, b),
+                                    k * IMAD_MUL, 3 * k * FE_BYTES))
 
 
 def chain_imads(op: str, mp: int) -> int:
@@ -840,6 +909,23 @@ def check_inner_products() -> None:
                                f"vs plain {plain_ms:.3f} ms" if timed else ""))
 
 
+def log_floor(name: str, n: int, dev) -> None:
+    """One torch.add of two [n, 20] tensors timed as the RUN_TIMED kernels
+    are: the host's floor for one op on such operands (it does not compute
+    the field product, so it is no library_ms)."""
+    rng = np.random.default_rng(SEED + 7)
+    a, b = (torch.from_numpy(rng.integers(0, F.BOUND + 1, size=(n, F.L),
+                                          dtype=np.int32)).to(dev)
+            for _ in "ab")
+    fn = lambda: torch.add(a, b)
+    dev_ms = sum(v[0] for v in G4.device_ms_by_kernel(
+        fn, RUN_LAUNCHES).values())
+    log(f"kernel {name:15s} floor: torch.add of two [{n}, 20]: "
+        f"{cuda_median_ms(fn):.4f} ms a call, "
+        f"{G4.run_ms(fn, RUN_LAUNCHES):.4f} ms a launch over "
+        f"{RUN_LAUNCHES} (device {dev_ms:.4f} ms a launch)")
+
+
 def as_tensor(out) -> torch.Tensor:
     """A kernel's or twin's result as one tensor: points (a GE or the
     wrappers' (x, y, z, t) tuple) as [n, 80] rows; the scan's (values,
@@ -884,6 +970,8 @@ def check_kernels(dev, rate) -> dict:
                 run = (f", {G4.run_ms(kern, RUN_LAUNCHES):.4f} ms a launch "
                        f"over {RUN_LAUNCHES} (device {dev_ms:.4f} ms a "
                        "launch)")
+            if name in IN_PLACE:
+                log_floor(name, got.shape[0], dev)
             if name in SPLIT_TIMED:
                 run = (f", {G4.run_ms(kern, SPLIT_LAUNCHES):.4f} ms a call "
                        f"over {SPLIT_LAUNCHES}" + G4.kernel_names(
@@ -1312,6 +1400,7 @@ def check_host(gens):
 # --- 9. the benchmarks -----------------------------------------------------
 REPO = Path(__file__).resolve().parent
 BENCH_MSM = "cudabulletproof_tpu_torch.benchmarks.bench_msm"
+BENCH_CALLS = "cudabulletproof_tpu_torch.benchmarks.bench_calls"
 # (label, python arguments, the check of its output lines)
 BENCH_RUNS = (
     ("--benchmark", ["-m", "cudabulletproof_tpu_torch", "--benchmark"],
@@ -1338,6 +1427,7 @@ BENCH_RUNS = (
      ["-m", "cudabulletproof_tpu_torch.benchmarks.bench_group4"],
      lambda lines: check_group4_lines(lines)),
 )
+AB_TIMEOUT_S = 1200
 # bench_addrate's default K and the lines of its sweep: (op, lanes,
 # mul_passes, add_passes)
 ADDRATE_K = 4096
@@ -1489,6 +1579,45 @@ def check_group4_lines(lines) -> None:
         raise AssertionError(f"bench_group4 printed {got}, expected {want}")
 
 
+AB_LINE = (r"ab (ge_add|fe_mul) .* \[this\] .*; kernels_a_call "
+           r"([\d. ]+); allocations ([\d. ]+)")
+
+
+def check_ab_lines(lines) -> None:
+    """bench_calls --against: four turns, every output the same, and this
+    checkout's ge_add and fe_mul one kernel (the profiler may miss a run's
+    first launches: at most one) and one allocation a call."""
+    if sum(ln.startswith("turn [") for ln in lines) != 4 or \
+            lines[-1] != "ab: every output the same in every turn":
+        raise AssertionError(f"bench_calls --against printed {lines[-8:]}")
+    found = [m for m in (re.fullmatch(AB_LINE, ln) for ln in lines) if m]
+    if {m[1] for m in found} != set(IN_PLACE) or any(
+            float(k) > 1 for m in found for k in m[2].split()) or any(
+            float(a) != 1 for m in found for a in m[3].split()):
+        raise AssertionError("bench_calls --against: ge_add / fe_mul not "
+                             f"one kernel and one allocation a call: "
+                             f"{[m[0] for m in found]}")
+
+
+def run_ab(card: str, other: Path) -> None:
+    """Phase 9b: bench_calls --against `other`, its lines echoed."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", BENCH_CALLS, "--against",
+                          str(other)], cwd=REPO,
+                         env=dict(os.environ, BP_PLATFORM="cuda"),
+                         capture_output=True, text=True,
+                         timeout=AB_TIMEOUT_S)
+    lines = out.stdout.splitlines()
+    for ln in lines:
+        log(f"[{card}] ab | {ln}")
+    if out.returncode != 0:
+        raise AssertionError(f"bench_calls --against {other}: exit "
+                             f"{out.returncode}\n{out.stderr[-4000:]}")
+    check_ab_lines(lines)
+    log(f"ab against {other}: every turn equal, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def check_repro_lines(lines) -> None:
     """_repro_accum3's nine variants, each checked against its twin."""
     want = [f"VARIANT {v} OK (2, 80, 1024)" for v in MC.REPRO_VARIANTS]
@@ -1609,7 +1738,12 @@ def counted(label: str, fn, need, forbid=()) -> dict:
     return got
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="the port's smoke run on one "
+                                 "card")
+    ap.add_argument("--against", type=Path, default=None,
+                    help="root of another checkout: the call A/B (phase 9b)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1631,7 +1765,7 @@ def main() -> int:
                                    if "registers" in ln or "spill" in ln
                                    or "stack" in ln
                                    or "Compiling entry" in ln))
-    record = run(torch.device("cuda", 0), card, rate)
+    record = run(torch.device("cuda", 0), card, rate, args.against)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1640,8 +1774,9 @@ def main() -> int:
     return 0
 
 
-def run(dev, card: str, rate: float) -> dict:
-    """Phases 3 to 10 on `dev`; returns the per-kernel record."""
+def run(dev, card: str, rate: float, against=None) -> dict:
+    """Phases 3 to 10 on `dev` (9b with `against`); returns the per-kernel
+    record."""
     t_start = time.perf_counter()
     reset_counts()
     kern = check_kernels(dev, rate)
@@ -1683,6 +1818,9 @@ def run(dev, card: str, rate: float) -> dict:
         f"{time.perf_counter() - t_start:.0f} s")
     run_benchmarks(card)
     log(f"[time] benchmarks checked at {time.perf_counter() - t_start:.0f} s")
+    if against is not None:
+        run_ab(card, against.resolve())
+        log(f"[time] A/B checked at {time.perf_counter() - t_start:.0f} s")
 
     # the main paths, counted: counters set to 0 before each, read after it
     verify_kernels = VERIFY_KERNELS + ["ge_ladder_win"]

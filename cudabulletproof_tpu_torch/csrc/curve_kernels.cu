@@ -6,13 +6,28 @@
 //   ge_ladder_bin_kernel  replaces pallas_curve.py::_ladder_kernel
 //   ge_reduce_kernel      replaces pallas_curve.py::_reduce_kernel
 //
-// Layout: rows of 80 int32 (x|y|z|t, 20 limbs each), [n, 80] row-major.
+// Layout: rows of 80 int32 (x|y|z|t, 20 limbs each), [n, 80] row-major,
+// except ge_add's operands (below).
 //
 // What bounds them on Hopper: integer multiplies.  An add is 9 field
 // multiplies (~4,000 IMADs) against 960 bytes moved; the ladder is ~2,800
 // field-multiply equivalents per point against 400 bytes, so it is
-// compute-bound.  ge_add, ge_double, ge_ladder_bin and ge_reduce run a
-// point's whole operation in one thread (fe25519.cuh's ge_padd / ge_pdbl).
+// compute-bound.  ge_double, ge_ladder_bin and ge_reduce run a point's
+// whole operation in one thread (fe25519.cuh's ge_padd / ge_pdbl).
+//
+// The batched add (ge_add) runs on the four-lane group law: lane c of a
+// point's four lanes holds coordinate c and runs ge4_padd, a chain 3
+// multiply latencies deep (ge_padd's is 9), and a block is one warp of 8
+// points, so the paths' 17 to 402 points spread over up to 51 SMs (one
+// thread a point in 128-thread blocks filled 4).  Points past n run as the
+// identity, so every shuffle group is defined, and store nothing.  Its
+// calls carry 3.6-26 us of device work under a host call that cost ~0.26
+// ms when the wrapper packed its operands, so its operands are read in
+// place: each of the 8 coordinates (x, y, z, t of p, then of q) comes as a
+// base pointer and a row stride in int32 -- 80 for a coordinate view of an
+// [n, 80] output, 20 for a contiguous [n, 20], 0 for one point broadcast
+// -- and lane c reads coordinate c of row i at base[c] + i * stride[c].
+// The output is one [n, 80] row-major tensor.
 //
 // The window ladder (w = 4 fixed window, the default of scalarmult_raw)
 // runs on the four-lane group law (fe25519.cuh's ge4_*): a point's four
@@ -74,14 +89,44 @@ constexpr int kLadderWinThreads = 32;
 constexpr int kLadderWinPoints = kLadderWinThreads / 4;
 constexpr int kWindows = (bp::FE_L * bp::FE_W) / 4;   // 65
 
-__global__ void ge_add_kernel(const int32_t* __restrict__ p,
-                              const int32_t* __restrict__ q,
-                              int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const bp::ge a = bp::ge_load(p + i * 4 * bp::FE_L);
-  const bp::ge b = bp::ge_load(q + i * 4 * bp::FE_L);
-  bp::ge_store(out + i * 4 * bp::FE_L, bp::ge_padd(a, b));
+// The batched add: one warp a block, 8 points of 4 lanes.
+constexpr int kAddThreads = 32;
+constexpr int kAddPoints = kAddThreads / 4;
+
+// A point operand read in place: coordinate c of row i at
+// c[c] + i * s[c] (s in int32; 0 broadcasts one point).
+struct ge_rows {
+  const int32_t* c[4];
+  int64_t s[4];
+};
+
+// Coordinate `c` of row i (c picked by selects, not by a dynamic index
+// into the kernel's parameters).
+__device__ __forceinline__ bp::fe ge_rows_load(const ge_rows& r, int c,
+                                               int64_t i) {
+  const int32_t* base = r.c[0];
+  int64_t stride = r.s[0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (c == k) {
+      base = r.c[k];
+      stride = r.s[k];
+    }
+  }
+  return bp::fe_load(base + i * stride);
+}
+
+__global__ void __launch_bounds__(kAddThreads)
+ge_add_kernel(const ge_rows p, const ge_rows q, int32_t* __restrict__ out,
+              int64_t n) {
+  const bp::lane4 g = bp::lane4_here();
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kAddPoints) +
+                    threadIdx.x / 4;
+  const bool valid = i < n;
+  const bp::fe a = valid ? ge_rows_load(p, g.c, i) : bp::ge4_identity(g);
+  const bp::fe b = valid ? ge_rows_load(q, g.c, i) : bp::ge4_identity(g);
+  const bp::fe r = bp::ge4_padd(g, a, b);
+  if (valid) bp::fe_store(out + i * 4 * bp::FE_L + g.c * bp::FE_L, r);
 }
 
 __global__ void ge_double_kernel(const int32_t* __restrict__ p,
@@ -210,10 +255,24 @@ unsigned int blocks_for(int64_t n, int threads) {
 
 }  // namespace
 
-extern "C" int bp_ge_add(const int32_t* p, const int32_t* q, int32_t* out,
+// The version of the library's C interface (utils/build.py's ABI): raised
+// whenever an entry's arguments change, so that a library built from
+// other sources is refused rather than called with the wrong arguments.
+extern "C" int bp_abi_version() { return 2; }
+
+// p, q: coordinates x, y, z, t, each a base pointer and a row stride in
+// int32 (0 = one point broadcast); out [n, 80].
+extern "C" int bp_ge_add(const int32_t* px, const int32_t* py,
+                         const int32_t* pz, const int32_t* pt, int64_t spx,
+                         int64_t spy, int64_t spz, int64_t spt,
+                         const int32_t* qx, const int32_t* qy,
+                         const int32_t* qz, const int32_t* qt, int64_t sqx,
+                         int64_t sqy, int64_t sqz, int64_t sqt, int32_t* out,
                          int64_t n, void* stream) {
   if (n <= 0) return 0;
-  ge_add_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+  const ge_rows p{{px, py, pz, pt}, {spx, spy, spz, spt}};
+  const ge_rows q{{qx, qy, qz, qt}, {sqx, sqy, sqz, sqt}};
+  ge_add_kernel<<<blocks_for(n, kAddPoints), kAddThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(p, q, out, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -263,8 +263,8 @@ static __device__ __noinline__ ge ge_madd(const ge& p, const fe& ypx2,
 }
 
 // ---------------------------------------------------------------------------
-// The four-lane group law (ge_ladder_win, ge_bucket_accum, ge_seg_scan,
-// ge_bucket_fold).
+// The four-lane group law (ge_add, ge_ladder_win, ge_bucket_accum,
+// ge_seg_scan, ge_bucket_fold).
 //
 // A point occupies four consecutive lanes of a warp: lane c (0..3) of the
 // group holds coordinate c (x, y, z, t), 20 limbs in registers.  Each

@@ -17,7 +17,12 @@
 // functions hold them (the Pallas kernels transposed to [20, n] tiles to put
 // the batch on the TPU's lanes).  A warp's loads are therefore strided by
 // 80 bytes; a [20, n] layout is left for a later change, since these
-// kernels are compute-bound (see fe25519.cuh).
+// kernels are compute-bound (see fe25519.cuh).  fe_mul reads its operands
+// in place: each a base pointer and a row stride in int32 (20 for a
+// contiguous [n, 20], 80 for a coordinate of an [n, 80] point row, 0 for
+// one element broadcast), so a call allocates only its output.  Its
+// blocks are one warp: the paths' 17 to 272 elements spread over 1 to 9
+// SMs, one warp a scheduler, as 128-thread blocks spread them over 1 to 3.
 //
 // What bounds them on Hopper: fe_mul / fe_sq are 400 / 210 IMADs against
 // 240 / 160 bytes of traffic per element, so integer-multiply throughput,
@@ -77,15 +82,17 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMulThreads = 32;
 
-__global__ void fe_mul_kernel(const int32_t* __restrict__ a,
-                              const int32_t* __restrict__ b,
-                              int32_t* __restrict__ out, int64_t n) {
+// a, b rows at strides sa, sb (int32; 0 = one element broadcast).
+__global__ void __launch_bounds__(kMulThreads)
+fe_mul_kernel(const int32_t* __restrict__ a, int64_t sa,
+              const int32_t* __restrict__ b, int64_t sb,
+              int32_t* __restrict__ out, int64_t n) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   bp::fe_store(out + i * bp::FE_L,
-               bp::fe_mul(bp::fe_load(a + i * bp::FE_L),
-                          bp::fe_load(b + i * bp::FE_L)));
+               bp::fe_mul(bp::fe_load(a + i * sa), bp::fe_load(b + i * sb)));
 }
 
 __global__ void fe_sq_kernel(const int32_t* __restrict__ a,
@@ -208,17 +215,18 @@ fe_inner_product_kernel(const int32_t* __restrict__ a,
   }
 }
 
-unsigned int blocks_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+unsigned int blocks_for(int64_t n, int threads = kThreads) {
+  return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
 }  // namespace
 
-extern "C" int bp_fe_mul(const int32_t* a, const int32_t* b, int32_t* out,
-                         int64_t n, void* stream) {
+// a, b: base pointers and row strides in int32 (0 = broadcast); out [n, 20].
+extern "C" int bp_fe_mul(const int32_t* a, int64_t sa, const int32_t* b,
+                         int64_t sb, int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  fe_mul_kernel<<<blocks_for(n), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
+  fe_mul_kernel<<<blocks_for(n, kMulThreads), kMulThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a, sa, b, sb, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

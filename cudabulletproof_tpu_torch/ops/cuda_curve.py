@@ -15,8 +15,12 @@
 Each wrapper broadcasts the batch dims of its CUDA int32 operands, packs a
 ``GE`` into contiguous ``[n, 80]`` rows (x|y|z|t), launches on PyTorch's
 current stream into an output made with ``torch.empty``, and unpacks the
-result to the batch shape.  It raises on anything the kernel does not take;
-there is no fallback.  The plain twins live in ``ops/curve.py``
+result to the batch shape.  ``add`` packs nothing: it passes each of the 8
+coordinates as its data pointer and row stride (``cuda_field.operand``:
+80 for a coordinate view of an earlier kernel's ``[n, 80]`` output, 20 for
+a contiguous ``[n, 20]``, 0 for one point broadcast), so on those layouts a
+call is one ``torch.empty`` and one launch.  Each wrapper raises on
+anything the kernel does not take; there is no fallback.  The plain twins live in ``ops/curve.py``
 (``add_plain``, ``double_plain``, ``scalarmult_plain``,
 ``scalarmult_bin_plain``, ``reduce_tiles_plain``)
 and ``ops/pippenger.py`` (``bucket_accum_plain``, ``seg_scan_plain``,
@@ -28,16 +32,19 @@ else.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils import build
-from .cuda_field import flat_operands
+from .cuda_field import check_operands, flat_operands, operand
 
 L = 20
 launches = {"ge_add": 0, "ge_double": 0, "ge_ladder_win": 0,
             "ge_ladder_bin": 0, "ge_reduce": 0, "ge_bucket_accum": 0,
             "ge_seg_scan": 0, "ge_bucket_fold": 0}
 REDUCE_TILE = 256            # points a ge_reduce block sums (csrc kReduceTile)
+COORDS = (L,) * 4            # x|y|z|t of an [..., 80] row
 
 
 def _rows(*pts) -> tuple:
@@ -53,15 +60,29 @@ def _run(name: str, batch, *args) -> tuple:
                       device=args[0].device)
     n = out.shape[0]
     if n:
-        with torch.cuda.device(out.device):
-            build.launch(f"bp_{name}", *args, out, n)
+        build.launch(f"bp_{name}", out.device, *args, out, n)
         launches[name] += 1
     return tuple(c.reshape(*batch, L) for c in out.split(L, dim=1))
 
 
 def add(p, q):
-    batch, (a, b) = _rows(p, q)
-    return _run("ge_add", batch, a, b)
+    """p + q on the four-lane kernel, the 8 coordinates read in place;
+    returns the (x, y, z, t) views of one [*batch, 80] output."""
+    coords = (*p, *q)
+    dev, batch = check_operands(L, coords)
+    keep, ptrs, steps = [], [], []     # keep: copies live until the launch
+    for c in coords:
+        c, step = operand(c, batch, L)
+        keep.append(c)
+        ptrs.append(c.data_ptr())
+        steps.append(step)
+    out = torch.empty((*batch, 4 * L), dtype=torch.int32, device=dev)
+    n = math.prod(batch)
+    if n:
+        build.launch("bp_ge_add", dev, *ptrs[:4], *steps[:4], *ptrs[4:],
+                     *steps[4:], out.data_ptr(), n)
+        launches["ge_add"] += 1
+    return out.split_with_sizes(COORDS, dim=-1)
 
 
 def double(p):
@@ -97,8 +118,7 @@ def reduce_tiles(p):
     out = torch.empty((-(-n // REDUCE_TILE), 4 * L), dtype=torch.int32,
                       device=rows.device)
     if n:
-        with torch.cuda.device(out.device):
-            build.launch("bp_ge_reduce", rows, out, n)
+        build.launch("bp_ge_reduce", out.device, rows, out, n)
         launches["ge_reduce"] += 1
     return out
 
@@ -127,9 +147,8 @@ def bucket_accum(pre: torch.Tensor, dg: torch.Tensor, w: int, threads: int,
     part = torch.empty((nw, slices, 4 * L), dtype=torch.int32,
                        device=pre.device)
     out = torch.empty((4 * L,), dtype=torch.int32, device=pre.device)
-    with torch.cuda.device(out.device):
-        build.launch("bp_ge_bucket_accum", pre, dg, part, out, n, nw, w,
-                     threads, slices)
+    build.launch("bp_ge_bucket_accum", out.device, pre, dg, part, out, n, nw,
+                 w, threads, slices)
     launches["ge_bucket_accum"] += 1
     return out
 
@@ -167,9 +186,8 @@ def seg_scan(pt: torch.Tensor, ht: torch.Tensor):
     carry = torch.empty((4 * L, lanes), dtype=torch.int32, device=dev)
     buf = torch.empty((2, lanes, 4 * L), dtype=torch.int32, device=dev)
     flags = torch.empty((2, lanes), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        build.launch("bp_ge_seg_scan", pt, ht, out, carry, buf, flags, depth,
-                     lanes)
+    build.launch("bp_ge_seg_scan", dev, pt, ht, out, carry, buf, flags, depth,
+                 lanes)
     launches["ge_seg_scan"] += 1
     return out, carry
 
@@ -201,8 +219,7 @@ def bucket_fold(body: torch.Tensor, lanes: int = 128) -> torch.Tensor:
     buf = torch.empty((2, lanes, 4 * L), dtype=torch.int32, device=dev)
     wacc = torch.empty((lanes, 4 * L), dtype=torch.int32, device=dev)
     out = torch.empty((4 * L,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        build.launch("bp_ge_bucket_fold", body, buf, wacc, out, m, depth,
-                     lanes)
+    build.launch("bp_ge_bucket_fold", dev, body, buf, wacc, out, m, depth,
+                 lanes)
     launches["ge_bucket_fold"] += 1
     return out

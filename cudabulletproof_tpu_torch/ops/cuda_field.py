@@ -14,7 +14,13 @@
 Each wrapper takes CUDA int32 tensors of 20-limb field elements whose batch
 dims broadcast, expands them to one shape, makes them contiguous and flat
 ``[n, 20]``, launches on PyTorch's current stream into an output made with
-``torch.empty``, and restores the batch shape.  ``inner_product_partial``
+``torch.empty``, and restores the batch shape.  ``mul`` (and
+``cuda_curve.add``) read their operands in place instead: each operand
+passes as its data pointer and one row stride (``operand``), so that on the
+paths' layouts -- contiguous rows, coordinate views of a point row, slices
+of them, a broadcast row -- a call allocates only its output and launches
+once; an operand whose batch dims do not flatten to one stride is copied
+first.  ``inner_product_partial``
 takes ``[B, n, 20]`` operands and returns the kernels' ``[B, 39, 256]``
 partial sums (zeroed with ``torch.zeros`` before the launch), which
 ``field.ip_combine`` turns into limbs.  It raises on anything the
@@ -27,6 +33,8 @@ kernel does not take; there is no fallback.  The plain twins live in
 else, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,25 +49,75 @@ IP_WIDTH = 256             # lo columns 0..127, hi columns 128..255
 MAX_ROWS = 65535           # the grid's y extent
 
 
+def check_operands(width: int, ts) -> tuple:
+    """Check CUDA int32 operands of row width `width` on one device; returns
+    (their device, their broadcast batch shape)."""
+    dev = ts[0].device
+    shape = ts[0].shape
+    same = True
+    for t in ts:
+        d, sh = t.device, t.shape
+        if d.type != "cuda":
+            raise ValueError(f"kernel operand on {d}, needs a CUDA tensor")
+        if d != dev:
+            raise ValueError(f"kernel operands on {dev} and {d}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"kernel operand of dtype {t.dtype}, needs int32")
+        if not sh or sh[-1] != width:
+            raise ValueError(f"kernel operand of shape {tuple(sh)}, "
+                             f"needs [..., {width}]")
+        same = same and sh == shape
+    if same:
+        return dev, shape[:-1]
+    return dev, torch.broadcast_shapes(*(t.shape[:-1] for t in ts))
+
+
 def flat_operands(width: int, *ts: torch.Tensor):
     """Check CUDA int32 operands of row width `width` on one device;
     broadcast their batch dims and flatten to contiguous [n, width].
     Returns (batch shape, flat tensors)."""
-    dev = ts[0].device
-    for t in ts:
-        if t.device.type != "cuda":
-            raise ValueError(f"kernel operand on {t.device}, needs a CUDA tensor")
-        if t.device != dev:
-            raise ValueError(f"kernel operands on {dev} and {t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"kernel operand of dtype {t.dtype}, needs int32")
-        if t.dim() < 1 or t.shape[-1] != width:
-            raise ValueError(f"kernel operand of shape {tuple(t.shape)}, "
-                             f"needs [..., {width}]")
-    batch = torch.broadcast_shapes(*(t.shape[:-1] for t in ts))
+    _, batch = check_operands(width, ts)
     flats = [t.expand(*batch, width).reshape(-1, width).contiguous()
              for t in ts]
     return batch, flats
+
+
+def row_stride(shape, stride, batch):
+    """The one row stride (in elements) at which a tensor of `shape` and
+    `stride` ([..., width], limbs at stride 1), broadcast to `batch`, holds
+    row i of the flattened batch at i * row stride: 0 where every row is the
+    same (a broadcast); None where the limbs are not at stride 1 or the
+    batch dims do not flatten to one stride (a transposed batch, a
+    broadcast outer dim over a strided inner one).  Metadata only."""
+    if stride[-1] != 1:
+        return None
+    lead = len(batch) - (len(shape) - 1)     # batch dims the tensor lacks
+    step = span = None
+    for d in range(len(batch) - 1, -1, -1):  # innermost first
+        size = batch[d]
+        if size == 1:
+            continue
+        k = d - lead
+        eff = stride[k] if k >= 0 and shape[k] != 1 else 0
+        if step is None:
+            step = eff
+        elif eff != span:
+            return None
+        span = eff * size
+    return 0 if step is None else step
+
+
+def operand(t: torch.Tensor, batch, width: int) -> tuple:
+    """(tensor, row stride) of an operand broadcast to `batch`: the tensor
+    itself, read in place at its data pointer, where ``row_stride`` finds
+    one stride; else a contiguous copy of its broadcast (stride `width`)."""
+    shape, stride = t.shape, t.stride()
+    if len(shape) == 2 and len(batch) == 1 and stride[1] == 1:
+        return t, (stride[0] if shape[0] != 1 else 0)   # [n, w] or [1, w]
+    step = row_stride(shape, stride, batch)
+    if step is None:
+        return t.expand(*batch, width).contiguous(), width
+    return t, step
 
 
 def launch_rows(counts: dict, name: str, width: int, *ts: torch.Tensor,
@@ -71,8 +129,7 @@ def launch_rows(counts: dict, name: str, width: int, *ts: torch.Tensor,
     out = torch.empty_like(flats[0])
     n = out.shape[0]
     if n:
-        with torch.cuda.device(out.device):
-            build.launch(f"bp_{name}", *flats, out, n, *extra)
+        build.launch(f"bp_{name}", out.device, *flats, out, n, *extra)
         counts[name] += 1
     return out.reshape(*batch, width)
 
@@ -82,7 +139,18 @@ def _run(name: str, *ts: torch.Tensor, extra=()) -> torch.Tensor:
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _run("fe_mul", a, b)
+    """a * b mod p; both read in place (``operand``), one allocation (the
+    output) and one launch."""
+    dev, batch = check_operands(L, (a, b))
+    a, sa = operand(a, batch, L)
+    b, sb = operand(b, batch, L)
+    out = torch.empty((*batch, L), dtype=torch.int32, device=dev)
+    n = math.prod(batch)
+    if n:
+        build.launch("bp_fe_mul", dev, a.data_ptr(), sa, b.data_ptr(), sb,
+                     out.data_ptr(), n)
+        launches["fe_mul"] += 1
+    return out
 
 
 def sq(a: torch.Tensor) -> torch.Tensor:
@@ -130,10 +198,9 @@ def inner_product_partial(a: torch.Tensor, b: torch.Tensor,
                           device=a.device)
     if rows:
         name = "fe_inner_product_batched" if batched else "fe_inner_product"
-        with torch.cuda.device(a.device):
-            if batched:
-                build.launch(f"bp_{name}", fa, fb, partial, rows, n)
-            else:
-                build.launch(f"bp_{name}", fa, fb, partial, n)
+        if batched:
+            build.launch(f"bp_{name}", a.device, fa, fb, partial, rows, n)
+        else:
+            build.launch(f"bp_{name}", a.device, fa, fb, partial, n)
         launches[name] += 1
     return partial

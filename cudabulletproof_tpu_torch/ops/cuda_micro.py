@@ -114,9 +114,8 @@ def accum_window(pt: torch.Tensor, dg: torch.Tensor, variant: str,
     totals = torch.empty((0 if lane_out else nw * ROW * lanes,),
                          dtype=torch.int32, device=dev)
     if nw and lanes:
-        with torch.cuda.device(dev):
-            build.launch("bp_ge_accum_window", pt, dg, out, buckets, totals,
-                         nw, steps, unroll, lanes, nb,
-                         VARIANTS.index(variant), int(shared))
+        build.launch("bp_ge_accum_window", dev, pt, dg, out, buckets,
+                     totals, nw, steps, unroll, lanes, nb,
+                     VARIANTS.index(variant), int(shared))
         launches["ge_accum_window"] += 1
     return out

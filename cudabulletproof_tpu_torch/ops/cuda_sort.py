@@ -41,8 +41,8 @@ def hist(keys: torch.Tensor, radix: int) -> torch.Tensor:
     keys = _keys(keys, radix)
     counts = torch.empty((radix, SUB, LN), dtype=torch.int32,
                          device=keys.device)
-    with torch.cuda.device(keys.device):
-        build.launch("bp_sort_hist", keys, counts, keys.shape[0], radix)
+    build.launch("bp_sort_hist", keys.device, keys, counts, keys.shape[0],
+                 radix)
     launches["sort_hist"] += 1
     return counts
 
@@ -60,8 +60,7 @@ def rank(keys: torch.Tensor, base: torch.Tensor, radix: int) -> torch.Tensor:
     base = base.contiguous()
     cnt = torch.empty_like(base)
     out = torch.empty_like(keys)
-    with torch.cuda.device(keys.device):
-        build.launch("bp_sort_rank", keys, base, cnt, out, keys.shape[0],
-                     radix)
+    build.launch("bp_sort_rank", keys.device, keys, base, cnt, out,
+                 keys.shape[0], radix)
     launches["sort_rank"] += 1
     return out

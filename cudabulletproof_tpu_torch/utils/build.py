@@ -11,6 +11,13 @@ library as ``.log``.
 
 Not ``torch.utils.cpp_extension.load``: a source that includes PyTorch's
 headers takes minutes to compile, a plain C interface seconds.
+
+``load`` binds every entry once and refuses a library whose
+``bp_abi_version()`` is not ``ABI`` (one built from sources whose C entries
+take other arguments: calling it would pass the wrong pointers).
+``launch`` is the one call path of every wrapper: it takes PyTorch's
+current raw stream and enters the operand's device only when it is not the
+current one.
 """
 from __future__ import annotations
 
@@ -35,11 +42,14 @@ _N = ctypes.c_int64
 # C entry points: name -> argument types.  Every pointer and the stream are
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
 # the pointer); every count is c_int64.  Each returns cudaGetLastError().
+ABI = 2                # bp_abi_version() of the sources below
 SIGNATURES = {
-    "bp_fe_mul": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
+    # a, row stride of a, b, row stride of b, out, n, stream
+    "bp_fe_mul": [_P, _N, _P, _N, _P, _N, _P],
     "bp_fe_sq": [_P, _P, _N, _P],               # a, out, n, stream
     "bp_fe_pow2523": [_P, _P, _N, _P],          # a, out, n, stream
-    "bp_ge_add": [_P, _P, _P, _N, _P],          # p, q, out, n, stream
+    # p's x, y, z, t pointers and their row strides, q's, out, n, stream
+    "bp_ge_add": [*[_P] * 4, *[_N] * 4, *[_P] * 4, *[_N] * 4, _P, _N, _P],
     "bp_ge_double": [_P, _P, _N, _P],           # p, out, n, stream
     "bp_ge_ladder_win": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
     "bp_ge_ladder_bin": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
@@ -148,12 +158,22 @@ def build(csrc: Path = CSRC) -> Path:
 
 
 def load(path: Path) -> ctypes.CDLL:
-    """A built kernel library with the entry points' argument types set."""
+    """A built kernel library with the entry points bound (``.entries``,
+    name -> function with its argument types set); raises if its C
+    interface is not this checkout's."""
     handle = ctypes.CDLL(str(path))
+    abi = handle.bp_abi_version() if hasattr(handle, "bp_abi_version") else 1
+    if abi != ABI:
+        raise RuntimeError(
+            f"{path}: C interface version {abi}, this checkout calls {ABI}: "
+            "its kernels take other arguments (compare such a checkout with "
+            "its own wrappers: benchmarks/bench_calls.py --against)")
+    handle.entries = {}
     for name, argtypes in SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        handle.entries[name] = fn
     return handle
 
 
@@ -165,12 +185,21 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry `name` on PyTorch's current stream; raise on a refused
-    launch.  Tensors pass as their data pointers, ints as counts."""
+def launch(name: str, device, *args) -> None:
+    """Call C entry `name` on PyTorch's current stream of CUDA `device`
+    (a torch.device with its index), entering the device only when it is
+    not the current one; raise on a refused launch.  Tensors pass as their
+    data pointers, ints as themselves."""
     import torch
-    stream = torch.cuda.current_stream().cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = getattr(lib(), name)(*conv, stream)
+    fn = lib().entries[name]
+    conv = [a if type(a) is int else a.data_ptr() for a in args]
+    index = device.index
+    # the raw cudaStream_t as an int, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        rc = fn(*conv, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")

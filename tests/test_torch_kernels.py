@@ -179,6 +179,114 @@ def test_curve_kernels_equal_twins(dev, n):
         assert torch.equal(TC.flatten(got), TC.flatten(want))
 
 
+# ge_add and fe_mul read their operands in place (a pointer and a row
+# stride each): counts around the four-lane add's blocks of 8 points, the
+# paths' 147 and 402, msm_auto's 1024 and the CLI's 10,000, on each layout
+# the paths hand them
+IN_PLACE_COUNTS = [0, 1, 7, 8, 9, 147, 402, 1024, 10_000]
+IN_PLACE_LAYOUTS = ["contiguous", "views of an add", "halves", "row [20]",
+                    "row [1, 20]"]
+
+
+def _edge_point_rows(dev):
+    """The identity, the base, the eight small-order points and a row of
+    limbs at 8799, as [11, 80] rows."""
+    pts = [oracle.IDENTITY, oracle.BASE] + oracle.small_order_points()
+    return torch.cat([TC.flatten(TC.from_oracle(pts, dev)), torch.full(
+        (1, 80), TF.BOUND, dtype=torch.int32, device=dev)])
+
+
+def _in_place_operands(rng, n, layout, dev):
+    """(p, q) GE operands of ge_add and (a, b) = (p.x, q.y) of fe_mul at
+    `layout`, n rows, the edge rows first: the edge points, then ADD_EDGES
+    in p's x and q's y."""
+    edge = _edge_point_rows(dev)
+    fe = torch.tensor(ADD_EDGES, dtype=torch.int32, device=dev)
+
+    def rows(m, flip):
+        r = _rand(rng, (m, 80), dev)
+        k = min(m, len(edge))
+        r[:k] = (edge.flip(0) if flip else edge)[:k]
+        k = max(0, min(m - len(edge), len(fe)))
+        col = 20 if flip else 0
+        r[len(edge):len(edge) + k, col:col + 20] = (
+            fe.flip(0) if flip else fe)[:k]
+        return r
+    if layout == "halves":              # curve.tree_reduce's c[:h], c[h:]
+        both = TC.unflatten(rows(2 * n, False))
+        p, q = TC.GE(*(c[:n] for c in both)), TC.GE(*(c[n:] for c in both))
+    else:
+        p, q = TC.unflatten(rows(n, False)), TC.unflatten(rows(n, True))
+        if layout == "contiguous":
+            p = TC.GE(*(c.contiguous() for c in p))
+            q = TC.GE(*(c.contiguous() for c in q))
+        elif layout == "views of an add":
+            p, q = TC.GE(*cuda_curve.add(p, q)), TC.GE(*cuda_curve.add(q, p))
+        else:                            # one point against n
+            one = TC.unflatten(_edge_point_rows(dev)[1])          # the base
+            q = one if layout == "row [20]" else TC.GE(*(c[None]
+                                                         for c in one))
+    return (p, q), (p.x, q.y)
+
+
+@pytest.mark.parametrize("layout", IN_PLACE_LAYOUTS)
+@pytest.mark.parametrize("n", IN_PLACE_COUNTS)
+def test_in_place_kernels_equal_twins(dev, n, layout):
+    """ge_add and fe_mul on operands read in place equal add_plain /
+    mul_plain limb for limb; n = 0 launches nothing."""
+    rng = np.random.default_rng(1000 + n)
+    (p, q), (a, b) = _in_place_operands(rng, n, layout, dev)
+    before = (cuda_curve.launches["ge_add"], cuda_field.launches["fe_mul"])
+    got = cuda_curve.add(p, q)
+    assert torch.equal(TC.flatten(got), TC.flatten(TC.add_plain(p, q)))
+    assert torch.equal(cuda_field.mul(a, b), TF.mul_plain(a, b))
+    assert torch.equal(cuda_field.mul(b, a), TF.mul_plain(b, a))
+    assert got[0].shape == (n, 20)
+    launched = int(n > 0)
+    assert (cuda_curve.launches["ge_add"], cuda_field.launches["fe_mul"]) \
+        == (before[0] + launched, before[1] + 2 * launched)
+
+
+@pytest.mark.parametrize("batch", ["[4, 5]", "transposed"])
+def test_in_place_kernels_batches(dev, batch):
+    """A [4, 5] batch flattens to one row stride and is read in place; a
+    transposed batch does not, and is copied first: both equal the twins
+    and keep the batch shape."""
+    rng = np.random.default_rng(7)
+    p = TC.unflatten(_rand(rng, (4, 5, 80), dev))
+    q = TC.unflatten(_rand(rng, (4, 5, 80), dev))
+    if batch == "transposed":
+        p = TC.GE(*(c.transpose(0, 1) for c in p))
+        q = TC.GE(*(c.transpose(0, 1) for c in q))
+    got = cuda_curve.add(p, q)
+    assert got[0].shape == p.x.shape
+    assert torch.equal(TC.flatten(got), TC.flatten(TC.add_plain(p, q)))
+    assert torch.equal(cuda_field.mul(p.x, q.t), TF.mul_plain(p.x, q.t))
+    d = TF.from_int(oracle.D, device=dev)
+    assert torch.equal(cuda_field.mul(d, p.y), TF.mul_plain(d, p.y))
+
+
+@pytest.mark.parametrize("layout", ["views of an add", "halves",
+                                    "row [20]"])
+def test_in_place_call_is_one_allocation_one_launch(dev, layout):
+    """On view and broadcast operands a call allocates exactly one tensor
+    (its output) and launches its kernel once."""
+    rng = np.random.default_rng(11)
+    (p, q), (a, b) = _in_place_operands(rng, 402, layout, dev)
+    for fn, counts, name in (
+            (lambda: cuda_curve.add(p, q), cuda_curve.launches, "ge_add"),
+            (lambda: cuda_field.mul(a, b), cuda_field.launches, "fe_mul")):
+        fn()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+        launched = counts[name]
+        out = fn()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+            - allocated == 1, name
+        assert counts[name] == launched + 1, name
+        del out
+
+
 @pytest.mark.parametrize("n", [2, 130, 258])
 def test_ladder_bin_kernel_equals_twin(dev, n):
     """The binary ladder at the prover's shapes (V, an IPA round, A|S at
