@@ -1,15 +1,23 @@
-"""The calls of the port's two most-launched kernels, timed on the card:
-``ge_add`` at 402 points (the MSM of a merged batch of 16 proofs) on the
-coordinate views of an earlier kernel's output, and ``fe_mul`` at 272
-elements (the batch of 16's decompression) on contiguous rows and against
-a broadcast constant, and at 10,000 (the CLI's microbenchmark); each
-beside one ``torch.add`` of two ``[n, 20]`` tensors, a host floor measured
-the same way (it does not compute the field product).  Then three
-wrappers that share only the launch path with them: ``fe_sq`` [272],
-``fe_add`` [10,000] and ``ge_double`` [402].  Then the walls
-downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add`` and 854
-``fe_mul`` launches), host prove at n = 64, ``msm_auto`` at 2^11 (the
-Straus route over ``ge_add`` / ``ge_double``) and one fused verify.
+"""The calls of the port's kernels that read their operands in place,
+timed on the card: ``ge_add`` at 402 points (the MSM of a merged batch of
+16 proofs) and ``ge_double`` at 402 on the coordinate views of an earlier
+kernel's output and at one point ``[20]`` (the Straus and Horner
+accumulators'), and ``fe_mul`` at 272 elements (the batch of 16's
+decompression) on contiguous rows and against a broadcast constant, and
+at 10,000 (the CLI's microbenchmark); each size beside one ``torch.add``
+of two ``[n, 20]`` tensors, a host floor measured the same way (it does
+not compute the field product).  Then two wrappers that share only the
+launch path with them: ``fe_sq`` [272] and ``fe_add`` [10,000]; and the
+binary ladder ``ge_ladder_bin`` at the verify path's 147 and 402 points
+and at 1024 (``bench_group4`` times it too, but loads another checkout's
+library into this one's wrappers, which a checkout of another C interface
+cannot serve).  Then the walls downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add``
+and 854 ``fe_mul`` launches), host prove at n = 64, ``msm_auto`` at 2^11
+(the Straus route over ``ge_add`` / ``ge_double``) and at 2^20 with
+``config.MSM_ACCUM_KERNEL`` off (the sort-plus-scan route, 4,160
+``ge_double`` launches), one fused verify, and the fused prover at n = 64
+under ``config.LADDER_WINDOW`` = 0 (``ge_ladder_bin``) on fixed
+randomness.
 
     python -m cudabulletproof_tpu_torch.benchmarks.bench_calls
     python -m cudabulletproof_tpu_torch.benchmarks.bench_calls --against DIR
@@ -58,9 +66,14 @@ RUN = 100                  # launches in a timed run
 CALL_REPS = 7
 N_BITS = 64
 MSM_STRAUS = 1 << 11
+MSM_SCAN = 1 << 20
+LADDER_BIN_SIZES = (147, 402, 1024)
 # wall cases: label -> repetitions (median)
 WALL_REPS = {"cli.main(['--benchmark'])": 1, f"host prove n={N_BITS}": 5,
-             f"msm_auto n={MSM_STRAUS}": 3, f"fused.verify n={N_BITS}": 3}
+             f"msm_auto n={MSM_STRAUS}": 3,
+             f"msm_auto n={MSM_SCAN} accum off": 1,
+             f"fused.verify n={N_BITS}": 3,
+             f"fused prove n={N_BITS} LADDER_WINDOW=0": 1}
 # runs a script file as __main__ with the checkout of the current directory
 # first on sys.path
 BOOT = ("import runpy, sys; sys.argv = sys.argv[1:]; "
@@ -151,8 +164,13 @@ def kernel_cases(dev) -> list:
 
     cases = []
     p, q = C.unflatten(rows(402, 4 * F.L)), C.unflatten(rows(402, 4 * F.L))
+    one = C.unflatten(rows(1, 4 * F.L)[0])                  # a point [20]
     cases += [("ge_add [402] coordinate views", "ge_add_kernel",
                lambda: cuda_curve.add(p, q), lambda: C.add_plain(p, q)),
+              ("ge_double [402] coordinate views", "ge_double_kernel",
+               lambda: cuda_curve.double(p), lambda: C.double_plain(p)),
+              ("ge_double [1] one point [20]", "ge_double_kernel",
+               lambda: cuda_curve.double(one), lambda: C.double_plain(one)),
               floor(402)]
     a, b = rows(272, F.L), rows(272, F.L)
     d2 = F.from_int(oracle.D2, device=dev)
@@ -169,9 +187,14 @@ def kernel_cases(dev) -> list:
     cases += [("fe_sq [272] contiguous", "fe_sq_kernel",
                lambda: cuda_field.sq(a), lambda: F.sq_plain(a)),
               ("fe_add [10000] contiguous", "fe_add3_kernel",
-               lambda: cuda_field.add(a4, b4), lambda: F.add3_plain(a4, b4)),
-              ("ge_double [402] coordinate views", "ge_double_kernel",
-               lambda: cuda_curve.double(p), lambda: C.double_plain(p))]
+               lambda: cuda_field.add(a4, b4), lambda: F.add3_plain(a4, b4))]
+    for n in LADDER_BIN_SIZES:
+        base = C.unflatten(rows(n, 4 * F.L))
+        k = torch.from_numpy(rng.integers(0, 1 << F.W, size=(n, F.L),
+                                          dtype=np.int32)).to(dev)
+        cases.append((f"ge_ladder_bin [{n}] rows", "ge_ladder_bin_kernel",
+                      lambda b=base, k=k: cuda_curve.ladder_bin(b, k),
+                      lambda b=base, k=k: C.scalarmult_bin_plain(b, k)))
     return cases
 
 
@@ -207,12 +230,13 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def measure_walls(dev) -> list:
-    from cudabulletproof_tpu_torch import cli
+    from cudabulletproof_tpu_torch import cli, config
     from cudabulletproof_tpu_torch.models import fused, rangeproof as RP
     from cudabulletproof_tpu_torch.models.generators import get_generators
     from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field
     from cudabulletproof_tpu_torch.ops import curve as C, field as F
     from cudabulletproof_tpu_torch.ops import msm as M
+    from cudabulletproof_tpu_torch.ops import scalar_field as SC
     from cudabulletproof_tpu_torch.utils import oracle
     rng = np.random.default_rng(SEED + 1)
     gens = get_generators(N_BITS, dev)
@@ -223,7 +247,34 @@ def measure_walls(dev) -> list:
     pts = C.scalarmult(C.base_point((MSM_STRAUS,), dev), mult)
     sc = F.from_ints([int.from_bytes(rng.bytes(32), "little") % oracle.ELL
                       for _ in range(MSM_STRAUS)], dev)
+    # 2^20 points (the 2^11 repeated) and scalars below 2^252 from limbs
+    big_pts = C.GE(*(c.repeat(MSM_SCAN // MSM_STRAUS, 1) for c in pts))
+    limbs = rng.integers(0, 1 << F.W, size=(MSM_SCAN, F.L), dtype=np.int32)
+    limbs[:, -1] >>= F.W - 5
+    big_sc = torch.from_numpy(limbs).to(dev)
     proof = RP.prove((1 << N_BITS) - 1, 0x5EED, N_BITS, gens)
+    # the fused prover's inputs: the value's bits, then the value, the
+    # blinding and 4 + 2n nonces, fixed so that every turn writes one blob
+    value = (1 << N_BITS) - 1
+    bits = torch.ones(N_BITS, dtype=torch.int32, device=dev)
+    scp = SC.from_ints([value, 0x5EED] + [
+        int.from_bytes(rng.bytes(32), "little") % oracle.ELL
+        for _ in range(4 + 2 * N_BITS)], dev)
+    table = gens.pack(N_BITS)
+
+    def accum_off():
+        config.MSM_ACCUM_KERNEL = False
+        try:
+            return C.to_bytes(M.msm_auto(big_pts, big_sc))
+        finally:
+            config.MSM_ACCUM_KERNEL = True
+
+    def prove_bin():
+        config.LADDER_WINDOW = 0
+        try:
+            return fused._prove(table, bits, scp, N_BITS)
+        finally:
+            config.LADDER_WINDOW = 4
 
     def bench():
         before = (cuda_curve.launches["ge_add"], cuda_field.launches["fe_mul"])
@@ -238,7 +289,9 @@ def measure_walls(dev) -> list:
                (1 << N_BITS) - 1, 0x5EED, N_BITS, gens), gens),
            f"msm_auto n={MSM_STRAUS}": lambda: C.to_bytes(M.msm_auto(pts,
                                                                      sc)),
-           f"fused.verify n={N_BITS}": lambda: fused.verify(proof, gens)}
+           f"msm_auto n={MSM_SCAN} accum off": accum_off,
+           f"fused.verify n={N_BITS}": lambda: fused.verify(proof, gens),
+           f"fused prove n={N_BITS} LADDER_WINDOW=0": prove_bin}
     out = []
     for label, fn in fns.items():
         got = fn()

@@ -1,8 +1,9 @@
 """The kernels on the four-lane group law, timed on the card:
-``ge_ladder_win`` at the verify path's 147 and 402 points and at
-``config.MSM_LADDER_MAX`` (1024), ``ge_bucket_accum`` at the sizes of
-``config.MSM_ACCUM_PLAN`` (2^12 and 2^13, the merged batches of 128 and 256
-proofs; 2^16, ``msm_auto``'s chunk), and the sort-plus-scan MSM's
+``ge_ladder_win`` and ``ge_ladder_bin`` at the verify path's 147 and 402
+points and at ``config.MSM_LADDER_MAX`` (1024), ``ge_bucket_accum`` at the
+sizes of ``config.MSM_ACCUM_PLAN`` (2^12 and 2^13, the merged batches of
+128 and 256 proofs; 2^16, ``msm_auto``'s chunk), and the sort-plus-scan
+MSM's
 ``ge_seg_scan`` at [depth 64 x 1024 lanes] and [32 x 1024] (a window of
 2^16 points at w = 13, of the merged batch of 1024 proofs at w = 11) and
 ``ge_bucket_fold`` at 8191 and 2047 rows (the same windows' tables), each
@@ -36,7 +37,11 @@ kernels run the JAX package's 128 fold lanes); then
 the wall times (host clock, median of 3 a turn) of host prove at n = 64,
 ``msm_auto`` at 2^16 and 2^20, and ``msm_auto`` at 2^16 and 2^20 with
 ``config.MSM_ACCUM_KERNEL`` off, in the same turns, on curve points, each
-result equal to the other library's as a compressed point.
+result equal to the other library's as a compressed point.  DIR's library
+is loaded into this checkout's wrappers, so its C interface must be this
+checkout's (``build.ABI``; ``build.load`` refuses another): a checkout of
+another interface is compared by ``bench_calls --against``, which runs
+each checkout's own package.
 
 ``--sweep`` times this checkout's scan and fold at other layouts (the scan
 of 2^16 points in SWEEP_SCAN_LANES lanes, of 2^15 in all but the last; the
@@ -71,8 +76,10 @@ from ..utils.profiling import (FE_BYTES, IMAD_ADD, IMAD_DBL, IMAD_MADD,
 SEED = 20261018
 LADDER_SIZES = (147, 402, config.MSM_LADDER_MAX)
 # the ladder's group operations a point: 7 table doublings and 65 x 4,
-# 7 table adds and 65 window adds
+# 7 table adds and 65 window adds; the binary ladder's, 2 unified adds a
+# bit of the 260-bit scalar
 LADDER_DBL, LADDER_ADD = 267, 72
+LADDER_BIN_ADD = 2 * C.SCALAR_BITS
 DOWNSTREAM_MSM = (1 << 16, 1 << 20)
 PROVE_BITS = 64
 # the sort-plus-scan kernels: [depth, lanes] and the digit count of the
@@ -89,6 +96,12 @@ def ladder_work(n: int) -> tuple:
     scalar read once, each result written once."""
     return (n * (LADDER_DBL * IMAD_DBL + LADDER_ADD * IMAD_ADD),
             n * (2 * PT_BYTES + FE_BYTES))
+
+
+def ladder_bin_work(n: int) -> tuple:
+    """(IMADs, bytes) of the binary ladder over n points: each point and
+    scalar read once, each result written once."""
+    return n * LADDER_BIN_ADD * IMAD_ADD, n * (2 * PT_BYTES + FE_BYTES)
 
 
 def accum_work(dg: torch.Tensor, n: int, w: int) -> tuple:
@@ -261,6 +274,10 @@ def cases(dev):
             "", lambda p=p, s=s: C.flatten(C.GE(*cuda_curve.ladder(p, s))),
             lambda p=p, s=s: C.flatten(C.scalarmult_plain(p, s)),
             *ladder_work(n))))
+        out.append(Case("ge_ladder_bin", n, fixed(
+            "", lambda p=p, s=s: C.flatten(C.GE(*cuda_curve.ladder_bin(p, s))),
+            lambda p=p, s=s: C.flatten(C.scalarmult_bin_plain(p, s)),
+            *ladder_bin_work(n))))
     for n in sorted(config.MSM_ACCUM_PLAN):
         w, threads, slices = config.accum_plan(n)
         pre = rows(n)

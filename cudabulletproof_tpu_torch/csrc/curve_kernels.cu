@@ -7,27 +7,31 @@
 //   ge_reduce_kernel      replaces pallas_curve.py::_reduce_kernel
 //
 // Layout: rows of 80 int32 (x|y|z|t, 20 limbs each), [n, 80] row-major,
-// except ge_add's operands (below).
+// except ge_add's and ge_double's operands (below).
 //
 // What bounds them on Hopper: integer multiplies.  An add is 9 field
 // multiplies (~4,000 IMADs) against 960 bytes moved; the ladder is ~2,800
 // field-multiply equivalents per point against 400 bytes, so it is
-// compute-bound.  ge_double, ge_ladder_bin and ge_reduce run a point's
-// whole operation in one thread (fe25519.cuh's ge_padd / ge_pdbl).
+// compute-bound.  ge_reduce runs a point's whole operation in one thread
+// (fe25519.cuh's ge_padd); the other four run on the four-lane group law.
 //
-// The batched add (ge_add) runs on the four-lane group law: lane c of a
-// point's four lanes holds coordinate c and runs ge4_padd, a chain 3
-// multiply latencies deep (ge_padd's is 9), and a block is one warp of 8
-// points, so the paths' 17 to 402 points spread over up to 51 SMs (one
-// thread a point in 128-thread blocks filled 4).  Points past n run as the
-// identity, so every shuffle group is defined, and store nothing.  Its
-// calls carry 3.6-26 us of device work under a host call that cost ~0.26
-// ms when the wrapper packed its operands, so its operands are read in
-// place: each of the 8 coordinates (x, y, z, t of p, then of q) comes as a
-// base pointer and a row stride in int32 -- 80 for a coordinate view of an
-// [n, 80] output, 20 for a contiguous [n, 20], 0 for one point broadcast
-// -- and lane c reads coordinate c of row i at base[c] + i * stride[c].
-// The output is one [n, 80] row-major tensor.
+// The four-lane kernels: lane c of a point's four lanes holds coordinate c
+// and runs fe25519.cuh's ge4_padd / ge4_pdbl, chains 3 and 2 multiply
+// latencies deep (one thread's are 9 and 8), and a block is one warp of 8
+// points, so the paths' 1 to 1024 points spread over up to 128 SMs (one
+// thread a point in 32- or 128-thread blocks filled a few).  Points past n
+// run as the identity (the ladders with a zero scalar), so every shuffle
+// group is defined, and store nothing.
+//
+// The batched add and doubling (ge_add, ge_double) carry 2-26 us of device
+// work under a host call that cost 0.13-0.35 ms when the wrapper packed its
+// operands, so their operands are read in place: each coordinate (x, y, z,
+// t of p, then of q for the add) comes as a base pointer and a row stride
+// in int32 -- 80 for a coordinate view of an [n, 80] output, 20 for a
+// contiguous [n, 20], 0 for one point broadcast -- and lane c reads
+// coordinate c of row i at base[c] + i * stride[c] (the doubling's lane 3
+// reads nothing: t is not an input of the doubling).  The output is one
+// [n, 80] row-major tensor.
 //
 // The window ladder (w = 4 fixed window, the default of scalarmult_raw)
 // runs on the four-lane group law (fe25519.cuh's ge4_*): a point's four
@@ -56,15 +60,17 @@
 // digit for scalar limbs in [0, 2^13) (what to_field_limbs produces).
 //
 // The binary ladder (ge_ladder_bin, scalarmult_raw with
-// PALLAS_LADDER_WINDOW = 0): 260 steps over the scalar's bits, most
-// significant first (bit 12 of limb 19 down to bit 0 of limb 0); a step is
-// acc = padd(acc, acc) -- the unified add as a doubling, as the Pallas
-// kernel does, not pdbl -- then added = padd(acc, P), and acc = added where
-// the bit is 1, by a mask select rather than a branch on the secret bit.
-// The TPU kernel shifts its scalar register a bit a step (no dynamic lane
-// index on Mosaic); here the bit is read straight from its limb.  520
-// unified adds a point (4,680 field multiplies, ~1.7x the window ladder's)
-// and no table: the accumulator and P stay in registers.
+// PALLAS_LADDER_WINDOW = 0), on the four-lane group law in one-warp blocks
+// of 8 points: 260 steps over the scalar's bits, most significant first
+// (bit 12 of limb 19 down to bit 0 of limb 0); a step is acc = padd(acc,
+// acc) -- the unified add as a doubling, as the Pallas kernel does, not
+// pdbl -- then added = padd(acc, P), and acc = added where the bit is 1, by
+// a mask select on each lane rather than a branch on the secret bit (the
+// four lanes of a point read the same bit).  The TPU kernel shifts its
+// scalar register a bit a step (no dynamic lane index on Mosaic); here the
+// bit is read straight from its limb.  520 unified adds a point, a chain
+// of ~1,560 multiply latencies (~4,680 in one thread), and no table: the
+// accumulator and P stay in registers.
 //
 // The tile reduction (ge_reduce, the _reduce_kernel of tree_reduce and
 // pallas_curve.msm): one block of 128 threads sums a tile of 256 points to
@@ -81,17 +87,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-// Few points per call: small blocks spread them over more SMs.
-constexpr int kLadderThreads = 32;
-// The window ladder: one warp a block, 8 points of 4 lanes.
-constexpr int kLadderWinThreads = 32;
-constexpr int kLadderWinPoints = kLadderWinThreads / 4;
+// The four-lane kernels: one warp a block, 8 points of 4 lanes.
+constexpr int kWarpThreads = 32;
+constexpr int kWarpPoints = kWarpThreads / 4;
 constexpr int kWindows = (bp::FE_L * bp::FE_W) / 4;   // 65
-
-// The batched add: one warp a block, 8 points of 4 lanes.
-constexpr int kAddThreads = 32;
-constexpr int kAddPoints = kAddThreads / 4;
 
 // A point operand read in place: coordinate c of row i at
 // c[c] + i * s[c] (s in int32; 0 broadcasts one point).
@@ -116,12 +115,16 @@ __device__ __forceinline__ bp::fe ge_rows_load(const ge_rows& r, int c,
   return bp::fe_load(base + i * stride);
 }
 
-__global__ void __launch_bounds__(kAddThreads)
+// This lane's point: its row (past n for the identity padding).
+__device__ __forceinline__ int64_t warp_point() {
+  return blockIdx.x * static_cast<int64_t>(kWarpPoints) + threadIdx.x / 4;
+}
+
+__global__ void __launch_bounds__(kWarpThreads)
 ge_add_kernel(const ge_rows p, const ge_rows q, int32_t* __restrict__ out,
               int64_t n) {
   const bp::lane4 g = bp::lane4_here();
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kAddPoints) +
-                    threadIdx.x / 4;
+  const int64_t i = warp_point();
   const bool valid = i < n;
   const bp::fe a = valid ? ge_rows_load(p, g.c, i) : bp::ge4_identity(g);
   const bp::fe b = valid ? ge_rows_load(q, g.c, i) : bp::ge4_identity(g);
@@ -129,12 +132,16 @@ ge_add_kernel(const ge_rows p, const ge_rows q, int32_t* __restrict__ out,
   if (valid) bp::fe_store(out + i * 4 * bp::FE_L + g.c * bp::FE_L, r);
 }
 
-__global__ void ge_double_kernel(const int32_t* __restrict__ p,
-                                 int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const bp::ge a = bp::ge_load(p + i * 4 * bp::FE_L);
-  bp::ge_store(out + i * 4 * bp::FE_L, bp::ge_pdbl(a));
+__global__ void __launch_bounds__(kWarpThreads)
+ge_double_kernel(const ge_rows p, int32_t* __restrict__ out, int64_t n) {
+  const bp::lane4 g = bp::lane4_here();
+  const int64_t i = warp_point();
+  const bool valid = i < n;
+  // the doubling never reads t: lane 3 loads nothing
+  const bp::fe a = valid && g.c < 3 ? ge_rows_load(p, g.c, i)
+                                    : bp::ge4_identity(g);
+  const bp::fe r = bp::ge4_pdbl(g, a);
+  if (valid) bp::fe_store(out + i * 4 * bp::FE_L + g.c * bp::FE_L, r);
 }
 
 // 4-bit digit of window w (0 = most significant): value bits 256-4w ..
@@ -151,7 +158,7 @@ __device__ __forceinline__ int ladder_digit(const int32_t* __restrict__ s,
 
 // The ladder's table in shared memory: entry j, limb i of lane l at
 // [j][i][l].
-__device__ __forceinline__ bp::fe tab_load(int32_t (*tab)[bp::FE_L][kLadderWinThreads],
+__device__ __forceinline__ bp::fe tab_load(int32_t (*tab)[bp::FE_L][kWarpThreads],
                                            int j) {
   bp::fe r;
 #pragma unroll
@@ -159,20 +166,19 @@ __device__ __forceinline__ bp::fe tab_load(int32_t (*tab)[bp::FE_L][kLadderWinTh
   return r;
 }
 
-__device__ __forceinline__ void tab_store(int32_t (*tab)[bp::FE_L][kLadderWinThreads],
+__device__ __forceinline__ void tab_store(int32_t (*tab)[bp::FE_L][kWarpThreads],
                                           int j, const bp::fe& a) {
 #pragma unroll
   for (int i = 0; i < bp::FE_L; ++i) tab[j][i][threadIdx.x] = a.v[i];
 }
 
-__global__ void __launch_bounds__(kLadderWinThreads)
+__global__ void __launch_bounds__(kWarpThreads)
 ge_ladder_win_kernel(const int32_t* __restrict__ p,
                      const int32_t* __restrict__ s,
                      int32_t* __restrict__ out, int64_t n) {
-  __shared__ int32_t tab[16][bp::FE_L][kLadderWinThreads];
+  __shared__ int32_t tab[16][bp::FE_L][kWarpThreads];
   const bp::lane4 g = bp::lane4_here();
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kLadderWinPoints) +
-                    threadIdx.x / 4;
+  const int64_t i = warp_point();
   const bool valid = i < n;
   const int32_t* sc = s + (valid ? i : 0) * bp::FE_L;
   const bp::fe base = valid ? bp::fe_load(p + i * 4 * bp::FE_L + g.c * bp::FE_L)
@@ -193,34 +199,33 @@ ge_ladder_win_kernel(const int32_t* __restrict__ p,
   if (valid) bp::fe_store(out + i * 4 * bp::FE_L + g.c * bp::FE_L, acc);
 }
 
-// acc = bit ? b : acc, limb for limb, without a branch (bit is 0 or 1).
-__device__ __forceinline__ void ge_select(bp::ge& acc, const bp::ge& b,
+// a = bit ? b : a, limb for limb, without a branch (bit is 0 or 1).
+__device__ __forceinline__ void fe_select(bp::fe& a, const bp::fe& b,
                                           int32_t bit) {
   const int32_t mask = -bit;
 #pragma unroll
-  for (int i = 0; i < bp::FE_L; ++i) {
-    acc.x.v[i] ^= (acc.x.v[i] ^ b.x.v[i]) & mask;
-    acc.y.v[i] ^= (acc.y.v[i] ^ b.y.v[i]) & mask;
-    acc.z.v[i] ^= (acc.z.v[i] ^ b.z.v[i]) & mask;
-    acc.t.v[i] ^= (acc.t.v[i] ^ b.t.v[i]) & mask;
-  }
+  for (int i = 0; i < bp::FE_L; ++i) a.v[i] ^= (a.v[i] ^ b.v[i]) & mask;
 }
 
-__global__ void ge_ladder_bin_kernel(const int32_t* __restrict__ p,
-                                     const int32_t* __restrict__ s,
-                                     int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const int32_t* sc = s + i * bp::FE_L;
-  const bp::ge base = bp::ge_load(p + i * 4 * bp::FE_L);
-  bp::ge acc = bp::ge_identity();
+__global__ void __launch_bounds__(kWarpThreads)
+ge_ladder_bin_kernel(const int32_t* __restrict__ p,
+                     const int32_t* __restrict__ s,
+                     int32_t* __restrict__ out, int64_t n) {
+  const bp::lane4 g = bp::lane4_here();
+  const int64_t i = warp_point();
+  const bool valid = i < n;
+  const int32_t* sc = s + (valid ? i : 0) * bp::FE_L;
+  const bp::fe base = valid ? bp::fe_load(p + i * 4 * bp::FE_L + g.c * bp::FE_L)
+                            : bp::ge4_identity(g);
+  bp::fe acc = bp::ge4_identity(g);
 #pragma unroll 1
   for (int k = bp::FE_L * bp::FE_W - 1; k >= 0; --k) {
-    acc = bp::ge_padd(acc, acc);
-    const bp::ge added = bp::ge_padd(acc, base);
-    ge_select(acc, added, (sc[k / bp::FE_W] >> (k % bp::FE_W)) & 1);
+    acc = bp::ge4_padd(g, acc, acc);
+    const bp::fe added = bp::ge4_padd(g, acc, base);
+    const int32_t bit = (sc[k / bp::FE_W] >> (k % bp::FE_W)) & 1;
+    fe_select(acc, added, valid ? bit : 0);
   }
-  bp::ge_store(out + i * 4 * bp::FE_L, acc);
+  if (valid) bp::fe_store(out + i * 4 * bp::FE_L + g.c * bp::FE_L, acc);
 }
 
 constexpr int kReduceTile = 256;                 // pallas_field.LANES
@@ -258,7 +263,7 @@ unsigned int blocks_for(int64_t n, int threads) {
 // The version of the library's C interface (utils/build.py's ABI): raised
 // whenever an entry's arguments change, so that a library built from
 // other sources is refused rather than called with the wrong arguments.
-extern "C" int bp_abi_version() { return 2; }
+extern "C" int bp_abi_version() { return 3; }
 
 // p, q: coordinates x, y, z, t, each a base pointer and a row stride in
 // int32 (0 = one point broadcast); out [n, 80].
@@ -272,15 +277,21 @@ extern "C" int bp_ge_add(const int32_t* px, const int32_t* py,
   if (n <= 0) return 0;
   const ge_rows p{{px, py, pz, pt}, {spx, spy, spz, spt}};
   const ge_rows q{{qx, qy, qz, qt}, {sqx, sqy, sqz, sqt}};
-  ge_add_kernel<<<blocks_for(n, kAddPoints), kAddThreads, 0,
+  ge_add_kernel<<<blocks_for(n, kWarpPoints), kWarpThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(p, q, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bp_ge_double(const int32_t* p, int32_t* out, int64_t n,
-                            void* stream) {
+// p: coordinates x, y, z, t, each a base pointer and a row stride in int32
+// (0 = one point broadcast; t is taken as ge_add's and not read); out
+// [n, 80].
+extern "C" int bp_ge_double(const int32_t* px, const int32_t* py,
+                            const int32_t* pz, const int32_t* pt, int64_t spx,
+                            int64_t spy, int64_t spz, int64_t spt,
+                            int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  ge_double_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+  const ge_rows p{{px, py, pz, pt}, {spx, spy, spz, spt}};
+  ge_double_kernel<<<blocks_for(n, kWarpPoints), kWarpThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(p, out, n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,7 +299,7 @@ extern "C" int bp_ge_double(const int32_t* p, int32_t* out, int64_t n,
 extern "C" int bp_ge_ladder_win(const int32_t* p, const int32_t* s,
                                 int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  ge_ladder_win_kernel<<<blocks_for(n, kLadderWinPoints), kLadderWinThreads, 0,
+  ge_ladder_win_kernel<<<blocks_for(n, kWarpPoints), kWarpThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(p, s, out, n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -296,7 +307,7 @@ extern "C" int bp_ge_ladder_win(const int32_t* p, const int32_t* s,
 extern "C" int bp_ge_ladder_bin(const int32_t* p, const int32_t* s,
                                 int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  ge_ladder_bin_kernel<<<blocks_for(n, kLadderThreads), kLadderThreads, 0,
+  ge_ladder_bin_kernel<<<blocks_for(n, kWarpPoints), kWarpThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(p, s, out, n);
   return static_cast<int>(cudaGetLastError());
 }

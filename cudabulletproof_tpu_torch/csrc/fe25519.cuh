@@ -4,7 +4,7 @@
 //   fe_mul   <- cudabulletproof_tpu/ops/pallas_field.py::_conv_fold
 //   fe_sq    <- pallas_field.py::_conv_sq
 //   ge_padd  <- cudabulletproof_tpu/ops/pallas_curve.py::_padd
-//   ge_pdbl  <- pallas_curve.py::_pdbl
+//   ge4_pdbl <- pallas_curve.py::_pdbl (on four lanes, below)
 //   ge_madd  <- pallas_curve.py::_madd
 //
 // Representation (unchanged from the JAX package, so every kernel output
@@ -230,22 +230,6 @@ static __device__ __noinline__ ge ge_padd(const ge& p, const ge& q) {
   return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
 }
 
-// Dedicated doubling (4 squarings + 4 multiplies; t is not read), in the op
-// order of pallas_curve.py::_pdbl.
-static __device__ __noinline__ ge ge_pdbl(const ge& p) {
-  const fe xx = fe_sq(p.x);
-  const fe yy = fe_sq(p.y);
-  fe zz2 = fe_sq(p.z);
-#pragma unroll
-  for (int i = 0; i < FE_L; ++i) zz2.v[i] *= 2;
-  fe_relax<2>(zz2);
-  const fe xy2 = fe_sub(fe_sq(fe_add(p.x, p.y)), fe_add(xx, yy));   // 2xy
-  const fe yp = fe_add(yy, xx);
-  const fe zp = fe_sub(yy, xx);
-  const fe tp = fe_sub(zz2, zp);
-  return ge{fe_mul(xy2, tp), fe_mul(yp, zp), fe_mul(zp, tp), fe_mul(xy2, yp)};
-}
-
 // Mixed add of an extended accumulator and a precomputed Z = 1 point given
 // as (y2+x2, y2-x2, 2d*t2): add-2008-hwcd-3 with zz = z1 * 1 and d2*t2
 // folded in, 7 multiplies.  The op order of pallas_curve.py::_madd.
@@ -263,8 +247,8 @@ static __device__ __noinline__ ge ge_madd(const ge& p, const fe& ypx2,
 }
 
 // ---------------------------------------------------------------------------
-// The four-lane group law (ge_add, ge_ladder_win, ge_bucket_accum,
-// ge_seg_scan, ge_bucket_fold).
+// The four-lane group law (ge_add, ge_double, ge_ladder_win, ge_ladder_bin,
+// ge_bucket_accum, ge_seg_scan, ge_bucket_fold).
 //
 // A point occupies four consecutive lanes of a warp: lane c (0..3) of the
 // group holds coordinate c (x, y, z, t), 20 limbs in registers.  Each
@@ -272,9 +256,10 @@ static __device__ __noinline__ ge ge_madd(const ge& p, const fe& ypx2,
 // operands between stages with __shfl_sync of width 4 under the mask of the
 // group's own four lanes (so groups of one warp may branch apart, as the
 // accumulator's digit-0 skip does).  Every field add, sub, relax and
-// multiply has the operands and op order of ge_padd / ge_pdbl / ge_madd
-// above, so the output limbs are theirs bit for bit; a + b and a - b of one
-// stage run as one fe_addsub with the sign picked per lane.
+// multiply has the operands and op order of ge_padd / ge_madd above and of
+// the dedicated doubling of pallas_curve.py::_pdbl (ops/curve.py's
+// double_plain), so the output limbs are theirs bit for bit; a + b and
+// a - b of one stage run as one fe_addsub with the sign picked per lane.
 //
 // Stages (M a field multiply, S a squaring; the rest adds and shuffles):
 //   ge4_pdbl  S: x^2 | y^2 | z^2 (then 2z^2) | (x+y)^2;
@@ -373,7 +358,8 @@ __device__ __forceinline__ fe ge4_padd(const lane4& g, const fe& p,
   return ge4_finish(g, r);
 }
 
-// ge_pdbl(p) on four lanes (t is not read).
+// The dedicated doubling (4 squarings + 4 multiplies, in the op order of
+// pallas_curve.py::_pdbl) on four lanes (t is not read).
 __device__ __forceinline__ fe ge4_pdbl(const lane4& g, const fe& p) {
   const int k = g.c;
   const fe px = fe_shfl(g, p, 0), py = fe_shfl(g, p, 1);

@@ -12,18 +12,20 @@
     ge_bucket_fold <- pallas_curve.py::_bucket_fold_kernel (scan_kernels.cu;
                       two kernels: the per-lane prefixes and the finish)
 
-Each wrapper broadcasts the batch dims of its CUDA int32 operands, packs a
-``GE`` into contiguous ``[n, 80]`` rows (x|y|z|t), launches on PyTorch's
-current stream into an output made with ``torch.empty``, and unpacks the
-result to the batch shape.  ``add`` packs nothing: it passes each of the 8
-coordinates as its data pointer and row stride (``cuda_field.operand``:
-80 for a coordinate view of an earlier kernel's ``[n, 80]`` output, 20 for
-a contiguous ``[n, 20]``, 0 for one point broadcast), so on those layouts a
-call is one ``torch.empty`` and one launch.  Each wrapper raises on
-anything the kernel does not take; there is no fallback.  The plain twins live in ``ops/curve.py``
-(``add_plain``, ``double_plain``, ``scalarmult_plain``,
-``scalarmult_bin_plain``, ``reduce_tiles_plain``)
-and ``ops/pippenger.py`` (``bucket_accum_plain``, ``seg_scan_plain``,
+``add`` and ``double`` read their points in place: each coordinate
+passes as its data pointer and row stride (``cuda_field.operand``: 80 for
+a coordinate view of an earlier kernel's ``[n, 80]`` output, 20 for a
+contiguous ``[n, 20]``, 0 for one point broadcast), so on those layouts a
+call is one ``torch.empty`` and one launch, and the result is the (x, y,
+z, t) views of that output.  The ladders and ``reduce_tiles`` broadcast
+the batch dims of their CUDA int32 operands and pack a ``GE`` into
+contiguous ``[n, 80]`` rows (x|y|z|t) first; the bucket kernels make
+their tables contiguous.  Every launch is on PyTorch's current stream into
+outputs made with ``torch.empty``.  Each wrapper raises on anything the
+kernel does not take; there is no fallback.  The plain twins live in
+``ops/curve.py`` (``add_plain``, ``double_plain``, ``scalarmult_plain``,
+``scalarmult_bin_plain``, ``reduce_tiles_plain``) and
+``ops/pippenger.py`` (``bucket_accum_plain``, ``seg_scan_plain``,
 ``bucket_fold_plain``).
 
 Results are (x, y, z, t) tuples; ``ops/curve.py`` wraps them in its ``GE``.
@@ -47,53 +49,53 @@ REDUCE_TILE = 256            # points a ge_reduce block sums (csrc kReduceTile)
 COORDS = (L,) * 4            # x|y|z|t of an [..., 80] row
 
 
-def _rows(*pts) -> tuple:
-    """GE operands -> (batch shape, contiguous [n, 80] rows per operand)."""
-    coords = [c for p in pts for c in p]
-    batch, flats = flat_operands(L, *coords)
-    rows = [torch.cat(flats[i:i + 4], dim=1) for i in range(0, len(flats), 4)]
-    return batch, rows
+def point_args(pts, batch) -> tuple:
+    """The C arguments of point operands read in place at `batch`: per
+    point its x, y, z, t data pointers, then their four row strides; and
+    the tensors they point into (copies among them, where a batch does not
+    flatten to one stride), to keep alive until the launch."""
+    args, keep = [], []
+    for p in pts:
+        planned = [operand(c, batch, L) for c in p]
+        keep += [t for t, _ in planned]
+        args += [t.data_ptr() for t, _ in planned] + [s for _, s in planned]
+    return args, keep
 
 
-def _run(name: str, batch, *args) -> tuple:
-    out = torch.empty((args[0].shape[0], 4 * L), dtype=torch.int32,
-                      device=args[0].device)
-    n = out.shape[0]
-    if n:
-        build.launch(f"bp_{name}", out.device, *args, out, n)
-        launches[name] += 1
-    return tuple(c.reshape(*batch, L) for c in out.split(L, dim=1))
-
-
-def add(p, q):
-    """p + q on the four-lane kernel, the 8 coordinates read in place;
-    returns the (x, y, z, t) views of one [*batch, 80] output."""
-    coords = (*p, *q)
-    dev, batch = check_operands(L, coords)
-    keep, ptrs, steps = [], [], []     # keep: copies live until the launch
-    for c in coords:
-        c, step = operand(c, batch, L)
-        keep.append(c)
-        ptrs.append(c.data_ptr())
-        steps.append(step)
+def _in_place(name: str, *pts) -> tuple:
+    """One launch of bp_<name> on the points `pts` read in place; returns
+    the (x, y, z, t) views of one [*batch, 80] output."""
+    dev, batch = check_operands(L, [c for p in pts for c in p])
+    args, _keep = point_args(pts, batch)
     out = torch.empty((*batch, 4 * L), dtype=torch.int32, device=dev)
     n = math.prod(batch)
     if n:
-        build.launch("bp_ge_add", dev, *ptrs[:4], *steps[:4], *ptrs[4:],
-                     *steps[4:], out.data_ptr(), n)
-        launches["ge_add"] += 1
+        build.launch(f"bp_{name}", dev, *args, out.data_ptr(), n)
+        launches[name] += 1
     return out.split_with_sizes(COORDS, dim=-1)
 
 
+def add(p, q):
+    """p + q on the four-lane kernel, the 8 coordinates read in place."""
+    return _in_place("ge_add", p, q)
+
+
 def double(p):
-    batch, (a,) = _rows(p)
-    return _run("ge_double", batch, a)
+    """2p on the four-lane kernel, the 4 coordinates read in place."""
+    return _in_place("ge_double", p)
 
 
 def _ladder(name: str, p, s: torch.Tensor):
+    """bp_<name> on p packed into contiguous [n, 80] rows and s [n, 20];
+    returns (x, y, z, t) in the broadcast batch shape."""
     batch, flats = flat_operands(L, *p, s)
     rows = torch.cat(flats[:4], dim=1)
-    return _run(name, batch, rows, flats[4])
+    out = torch.empty_like(rows)
+    n = out.shape[0]
+    if n:
+        build.launch(f"bp_{name}", out.device, rows, flats[4], out, n)
+        launches[name] += 1
+    return tuple(c.reshape(*batch, L) for c in out.split(L, dim=1))
 
 
 def ladder(p, s: torch.Tensor):
@@ -111,7 +113,8 @@ def ladder_bin(p, s: torch.Tensor):
 def reduce_tiles(p):
     """GE [n] -> [ceil(n / 256), 80] rows: one partial sum per tile of 256
     points (identity-padded), by the ge_reduce kernel."""
-    batch, (rows,) = _rows(p)
+    batch, flats = flat_operands(L, *p)
+    rows = torch.cat(flats, dim=1)
     if len(batch) != 1:
         raise ValueError(f"reduce_tiles takes GE [n], got batch {tuple(batch)}")
     n = rows.shape[0]

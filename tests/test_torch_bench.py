@@ -132,7 +132,8 @@ def test_profiling_helpers(tmp_path):
 
 def test_group4_bench_work_and_build_dirs(monkeypatch, tmp_path):
     """bench_group4 counts the window ladder's work (267 doublings and 72
-    adds a point) and the accumulator's (a mixed add per nonzero digit, the
+    adds a point), the binary ladder's (520 adds a point) and the
+    accumulator's (a mixed add per nonzero digit, the
     fold and the combine) as chip_smoke.py reports them, and refuses to run
     without a card; the build module names another checkout's library by
     its sources (the same sources, the same library)."""
@@ -143,6 +144,8 @@ def test_group4_bench_work_and_build_dirs(monkeypatch, tmp_path):
         IMAD_ADD, IMAD_DBL, IMAD_MADD)
     assert G4.ladder_work(402) == (402 * (267 * IMAD_DBL + 72 * IMAD_ADD),
                                    402 * (2 * 320 + 80))
+    assert G4.ladder_bin_work(402) == (402 * 520 * IMAD_ADD,
+                                       402 * (2 * 320 + 80))
     dg = torch.tensor([[0, 1, -8], [8, 0, 0]], dtype=torch.int32)
     imads, nbytes = G4.accum_work(dg, 3, 4)
     assert imads == (3 * IMAD_MADD + 2 * 2 * 8 * IMAD_ADD

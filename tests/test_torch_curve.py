@@ -186,6 +186,8 @@ def test_dispatch_refuses_non_cuda(pts):
     with pytest.raises(ValueError):
         cuda_curve.add(p, p)
     with pytest.raises(ValueError):
+        cuda_curve.double(p)
+    with pytest.raises(ValueError):
         cuda_curve.ladder(p, TF.from_ints([1, 2]))
 
 

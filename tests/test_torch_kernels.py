@@ -179,10 +179,10 @@ def test_curve_kernels_equal_twins(dev, n):
         assert torch.equal(TC.flatten(got), TC.flatten(want))
 
 
-# ge_add and fe_mul read their operands in place (a pointer and a row
-# stride each): counts around the four-lane add's blocks of 8 points, the
-# paths' 147 and 402, msm_auto's 1024 and the CLI's 10,000, on each layout
-# the paths hand them
+# ge_add, ge_double and fe_mul read their operands in place (a pointer and
+# a row stride each): counts around the four-lane kernels' blocks of 8
+# points, the paths' 147 and 402, msm_auto's 1024 and the CLI's 10,000, on
+# each layout the paths hand them
 IN_PLACE_COUNTS = [0, 1, 7, 8, 9, 147, 402, 1024, 10_000]
 IN_PLACE_LAYOUTS = ["contiguous", "views of an add", "halves", "row [20]",
                     "row [1, 20]"]
@@ -232,19 +232,29 @@ def _in_place_operands(rng, n, layout, dev):
 @pytest.mark.parametrize("layout", IN_PLACE_LAYOUTS)
 @pytest.mark.parametrize("n", IN_PLACE_COUNTS)
 def test_in_place_kernels_equal_twins(dev, n, layout):
-    """ge_add and fe_mul on operands read in place equal add_plain /
-    mul_plain limb for limb; n = 0 launches nothing."""
+    """ge_add, ge_double and fe_mul on operands read in place equal
+    add_plain / double_plain / mul_plain limb for limb (the doubling of p,
+    the identity its first row, and of q: one point alone on the row
+    layouts); n = 0 launches nothing."""
     rng = np.random.default_rng(1000 + n)
     (p, q), (a, b) = _in_place_operands(rng, n, layout, dev)
-    before = (cuda_curve.launches["ge_add"], cuda_field.launches["fe_mul"])
+    names = ("ge_add", "ge_double", "fe_mul")
+    before = [{**cuda_curve.launches, **cuda_field.launches}[k]
+              for k in names]
     got = cuda_curve.add(p, q)
     assert torch.equal(TC.flatten(got), TC.flatten(TC.add_plain(p, q)))
+    for pt in (p, q):
+        two = cuda_curve.double(pt)
+        assert two[0].shape == pt.x.shape
+        assert torch.equal(TC.flatten(two), TC.flatten(TC.double_plain(pt)))
     assert torch.equal(cuda_field.mul(a, b), TF.mul_plain(a, b))
     assert torch.equal(cuda_field.mul(b, a), TF.mul_plain(b, a))
     assert got[0].shape == (n, 20)
     launched = int(n > 0)
-    assert (cuda_curve.launches["ge_add"], cuda_field.launches["fe_mul"]) \
-        == (before[0] + launched, before[1] + 2 * launched)
+    doubled = launched + int(n > 0 or layout.startswith("row"))   # p, q
+    assert [{**cuda_curve.launches, **cuda_field.launches}[k] for k in names] \
+        == [before[0] + launched, before[1] + doubled,
+            before[2] + 2 * launched]
 
 
 @pytest.mark.parametrize("batch", ["[4, 5]", "transposed"])
@@ -261,6 +271,9 @@ def test_in_place_kernels_batches(dev, batch):
     got = cuda_curve.add(p, q)
     assert got[0].shape == p.x.shape
     assert torch.equal(TC.flatten(got), TC.flatten(TC.add_plain(p, q)))
+    got = cuda_curve.double(q)
+    assert got[0].shape == q.x.shape
+    assert torch.equal(TC.flatten(got), TC.flatten(TC.double_plain(q)))
     assert torch.equal(cuda_field.mul(p.x, q.t), TF.mul_plain(p.x, q.t))
     d = TF.from_int(oracle.D, device=dev)
     assert torch.equal(cuda_field.mul(d, p.y), TF.mul_plain(d, p.y))
@@ -270,11 +283,14 @@ def test_in_place_kernels_batches(dev, batch):
                                     "row [20]"])
 def test_in_place_call_is_one_allocation_one_launch(dev, layout):
     """On view and broadcast operands a call allocates exactly one tensor
-    (its output) and launches its kernel once."""
+    (its output) and launches its kernel once (ge_double on p and on q:
+    one point alone on the row layout)."""
     rng = np.random.default_rng(11)
     (p, q), (a, b) = _in_place_operands(rng, 402, layout, dev)
     for fn, counts, name in (
             (lambda: cuda_curve.add(p, q), cuda_curve.launches, "ge_add"),
+            (lambda: cuda_curve.double(p), cuda_curve.launches, "ge_double"),
+            (lambda: cuda_curve.double(q), cuda_curve.launches, "ge_double"),
             (lambda: cuda_field.mul(a, b), cuda_field.launches, "fe_mul")):
         fn()
         torch.cuda.synchronize()
@@ -287,20 +303,22 @@ def test_in_place_call_is_one_allocation_one_launch(dev, layout):
         del out
 
 
-@pytest.mark.parametrize("n", [2, 130, 258])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 130, 147, 258, 402])
 def test_ladder_bin_kernel_equals_twin(dev, n):
-    """The binary ladder at the prover's shapes (V, an IPA round, A|S at
-    n = 64): weak-limb rows with the identity, the base and the 8-torsion
-    points among them, against random and edge scalars (0, 1, 2, l-1,
-    2^253-1, all limbs 8191); then one point broadcast against n scalars,
-    and [2, m] batches, as the prover calls it."""
+    """The binary ladder (one-warp blocks of 8 points) below, at and past a
+    block, at the prover's shapes (V, an IPA round, A|S at n = 64) and the
+    verify paths' 147 and 402: weak-limb rows with the identity, the base
+    and the 8-torsion points among them, against random and edge scalars
+    (0, 1, 2, l-1, 2^253-1, the top limb's top bit, all limbs 8191); then
+    one point broadcast against n scalars, and [2, m] batches, as the
+    prover calls it."""
     rng = np.random.default_rng(n)
     rows = _rand(rng, (n, 80), dev)
     tor = [oracle.IDENTITY, oracle.BASE] + oracle.small_order_points()
     rows[:min(n, len(tor))] = TC.flatten(TC.from_oracle(tor[:n], dev))
     p = TC.unflatten(rows)
-    edges = [_raw(v) for v in (0, 1, 2, oracle.ELL - 1, (1 << 253) - 1)] + [
-        [0x1FFF] * 20]
+    edges = [_raw(v) for v in (0, 1, 2, oracle.ELL - 1, (1 << 253) - 1,
+                               1 << 259)] + [[0x1FFF] * 20]
     vals = [int.from_bytes(rng.bytes(32), "little") % oracle.ELL
             for _ in range(n)]
     s = TF.from_ints(vals, dev)
@@ -309,7 +327,7 @@ def test_ladder_bin_kernel_equals_twin(dev, n):
     got = cuda_curve.ladder_bin(p, s)
     want = TC.scalarmult_bin_plain(p, s)
     assert torch.equal(TC.flatten(got), TC.flatten(want))
-    one = TC.GE(*(c[1] for c in p))                       # unbatched
+    one = TC.GE(*(c[min(1, n - 1)] for c in p))           # unbatched
     got = TC.GE(*cuda_curve.ladder_bin(one, s))
     want = TC.scalarmult_bin_plain(TC.GE(*(c.expand(n, 20) for c in one)), s)
     assert torch.equal(TC.flatten(got), TC.flatten(want))

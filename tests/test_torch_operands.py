@@ -1,6 +1,7 @@
 """The operand plan of the in-place kernel wrappers (CPU, no JAX).
 
-``cuda_curve.add`` and ``cuda_field.mul`` pass each operand to their kernel
+``cuda_curve.add``, ``cuda_curve.double`` and ``cuda_field.mul`` pass each
+operand to their kernel
 as a data pointer and one row stride (``cuda_field.operand``), and copy an
 operand only where its batch dims do not flatten to one stride.  The plan
 is a function of tensor metadata, so it runs here on CPU tensors: which
@@ -8,15 +9,18 @@ layouts pass without a copy (the same ``data_ptr``) and at what stride,
 which are copied, and -- read back with ``torch.as_strided`` from the
 pointer and the stride, as the kernel reads them -- that row i of the plan
 is row i of the broadcast operand.  Also that every C entry of the kernel
-library takes the arguments ``utils/build.py`` binds (no compiler here).
+library takes the arguments ``utils/build.py`` binds (no compiler here),
+and that a library of an older C interface is refused.
 """
 import ctypes
+import math
 import re
+import types
 
 import pytest
 import torch
 
-from cudabulletproof_tpu_torch.ops import cuda_field, curve as TC
+from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field, curve as TC
 from cudabulletproof_tpu_torch.utils import build
 
 L = 20
@@ -30,6 +34,32 @@ def _rows(*shape):
 def _read(t: torch.Tensor, step: int, n: int) -> torch.Tensor:
     """n rows of L limbs at t's data pointer, row stride `step`."""
     return torch.as_strided(t, (n, L), (step, 1), t.storage_offset())
+
+
+# ge_double's operand at the batches it is called with: one point (the
+# Straus and Horner accumulators'), [1] and a [2, 3] batch
+DOUBLE_BATCHES = ((), (1,), (2, 3))
+
+
+def _point_layouts(batch) -> dict:
+    """layout -> (a GE at `batch`, its coordinates' expected row stride):
+    the coordinate views of an [*batch, 80] output, contiguous [*batch, 20]
+    coordinates and one point [20] broadcast."""
+    return {"coordinate views": (TC.unflatten(_rows(*batch, 4 * L)), 4 * L),
+            "contiguous": (TC.GE(*(_rows(*batch, L) for _ in "xyzt")), L),
+            "one point broadcast": (TC.unflatten(_rows(4 * L)), 0)}
+
+
+def _double_layouts() -> dict:
+    """label -> (operand, batch, stride) of each coordinate of ge_double's
+    operand at each layout and batch (a batch of one row reads it at 0)."""
+    out = {}
+    for batch in DOUBLE_BATCHES:
+        for layout, (p, step) in _point_layouts(batch).items():
+            for name, c in zip("xyzt", p):
+                out[f"double {layout} {name}, batch {list(batch)}"] = (
+                    c, batch, step if math.prod(batch) > 1 else 0)
+    return out
 
 
 def _layouts():
@@ -52,6 +82,7 @@ def _layouts():
         "[4, 1] against a [4, 5] batch": (flat[:, :1], (4, 5), None),
         "transposed batch": (flat.transpose(0, 1), (5, 4), None),
         "limbs not at stride 1": (_rows(L, 9).T, (9,), None),
+        **_double_layouts(),
     }
 
 
@@ -103,3 +134,59 @@ def test_c_entries_take_the_bound_arguments():
     m = re.search(r'extern "C" int bp_abi_version\(\) \{ return (\d+); \}',
                   src)
     assert m and int(m.group(1)) == build.ABI
+    # ge_double reads its point in place: x, y, z, t, then their strides
+    assert _c_params(src, "bp_ge_double") == [
+        "const int32_t* px", "const int32_t* py", "const int32_t* pz",
+        "const int32_t* pt", "int64_t spx", "int64_t spy", "int64_t spz",
+        "int64_t spt", "int32_t* out", "int64_t n", "void* stream"]
+
+
+@pytest.mark.parametrize("batch", DOUBLE_BATCHES)
+@pytest.mark.parametrize("layout", ["coordinate views", "contiguous",
+                                    "one point broadcast"])
+def test_point_arguments(layout, batch):
+    """``cuda_curve.point_args`` passes each point as its x, y, z, t data
+    pointers, then their row strides, the order of bp_ge_add / bp_ge_double;
+    read back from (pointer, stride), coordinate c of row i is row i of the
+    broadcast coordinate c, for p alone and for (p, q)."""
+    p, _ = _point_layouts(batch)[layout]
+    q = TC.unflatten(_rows(*batch, 4 * L) + 7)
+    n = math.prod(batch)
+    for pts in ((p,), (p, q)):
+        args, keep = cuda_curve.point_args(pts, batch)
+        assert len(args) == 8 * len(pts)
+        by_ptr = {t.data_ptr(): t for t in keep}
+        for j, pt in enumerate(pts):
+            ptrs, steps = args[8 * j:8 * j + 4], args[8 * j + 4:8 * j + 8]
+            for c, ptr, step in zip(pt, ptrs, steps):
+                want = c.expand(*batch, L).reshape(n, L)
+                assert torch.equal(_read(by_ptr[ptr], step, n), want)
+
+
+class _Library:
+    """Stands for a built kernel library of C interface `version` (None:
+    one from before ``bp_abi_version``): every entry, none of them run."""
+
+    def __init__(self, version):
+        if version is not None:
+            self.bp_abi_version = lambda: version
+        for name in build.SIGNATURES:
+            setattr(self, name, types.SimpleNamespace())
+
+
+@pytest.mark.parametrize("version", [None, 2, build.ABI, build.ABI + 1])
+def test_older_library_is_refused(monkeypatch, version):
+    """``build.load`` binds every entry of a library of this checkout's C
+    interface, with the argument types of SIGNATURES, and refuses a library
+    of any other (an older ge_double entry took one packed point)."""
+    assert build.ABI == 3
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: _Library(version))
+    if version != build.ABI:
+        with pytest.raises(RuntimeError, match="C interface version"):
+            build.load("lib.so")
+        return
+    handle = build.load("lib.so")
+    assert set(handle.entries) == set(build.SIGNATURES)
+    for name, fn in handle.entries.items():
+        assert fn.argtypes == build.SIGNATURES[name]
+        assert fn.restype is ctypes.c_int
