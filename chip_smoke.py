@@ -14,7 +14,11 @@ Phases, each raising on failure (so the exit code is nonzero):
      edge inputs; equality must be exact, limb for limb (tolerance 0:
      integer arithmetic).  fe_add / fe_sub at 1, 25 (the edge rows),
      255, 257 and 10,000 elements (the CLI's microbenchmark size, the one
-     timed; their bound is 240 bytes an element over the HBM rate).  The sort-plus-scan kernels: ge_seg_scan at
+     timed; their bound is 240 bytes an element over the HBM rate).
+     fe_pow2523 at 17, 272 (timed), 2176, 4352 and 17,408 elements and
+     fe_invert at 1, 272, 17,408 and 4096 (timed), each at the group width
+     config.chain_lanes picks for its count, every width of the rule among
+     them.  The sort-plus-scan kernels: ge_seg_scan at
      [depth 64, lanes 1024] (one window at 2^16, runs of equal digits that
      straddle lanes) and [32, 1024] (the B = 1024 batch's windows), and
      small shapes with all heads, no heads and a head at every lane start
@@ -241,7 +245,15 @@ PROVE_GOLDEN = "tests/golden/prove_n64.npz"
 # fused proves timed under each ladder (~10 s each on the card's host):
 # phase 7's counted run and one more
 PROVE_REPS = 2
-INVERT_SHAPES = (1, 272, 4096)
+# the Fermat chains at the paths' counts, the edge rows over the first
+# rows so that each runs the group width config.chain_lanes picks for its
+# count (kernel_cases checks that they run every width of the rule):
+# fe_pow2523 at the decompression of one verify and of merged batches of
+# 128, 256, 1024 and 16 (17 points a proof; 272 the one timed), fe_invert
+# on one element (batch_invert's total), 272, 17,408 and the kernel
+# table's 4096 (timed)
+POW2523_SHAPES = (17, 2176, 4352, 17408, 272)
+INVERT_SHAPES = (1, 272, 17408, 4096)
 REDUCE_SHAPES = (147, 256, 1000, 4096)
 ACCUM_BASES = 4096
 # the accumulator's edge cases: at 1000 points (a multiple of no K) every
@@ -516,17 +528,24 @@ def kernel_cases(rng, dev):
         cases["fe_sq"].append((n, lambda a=a: cuda_field.sq(a),
                                lambda a=a: F.sq_plain(a),
                                m * IMAD_SQ, 2 * m * FE_BYTES))
-        cases["fe_pow2523"].append(
-            (n, lambda a=a: cuda_field.pow2523(a),
-             lambda a=a: F.pow2523_plain(a),
-             m * (251 * IMAD_SQ + 11 * IMAD_MUL), 2 * m * FE_BYTES))
-    for n in INVERT_SHAPES:
-        a = t(np.concatenate([rand_fe(n), edge_fe()]))
-        m = a.shape[0]
-        cases["fe_invert"].append(
-            (n, lambda a=a: cuda_field.invert(a),
-             lambda a=a: F.invert_plain(a),
-             m * (254 * IMAD_SQ + 11 * IMAD_MUL), 2 * m * FE_BYTES))
+    chains = (("fe_pow2523", POW2523_SHAPES, cuda_field.pow2523,
+               F.pow2523_plain, 251), ("fe_invert", INVERT_SHAPES,
+                                       cuda_field.invert, F.invert_plain, 254))
+    rule = {lanes for _, lanes in config.CHAIN_LANES_CUDA}
+    for name, shapes, kern, plain, squarings in chains:
+        widths = {config.chain_lanes(dev, n) for n in shapes}
+        if widths != rule:
+            raise AssertionError(f"{name}'s cases run widths {widths}, the "
+                                 f"rule picks {rule}")
+        for n in shapes:
+            rows = rand_fe(n)
+            k = min(n, len(edge_fe()))
+            rows[:k] = edge_fe()[:k]
+            a = t(rows)
+            cases[name].append(
+                (f"{n} (G = {config.chain_lanes(dev, n)})",
+                 lambda a=a, kern=kern: kern(a), lambda a=a, p=plain: p(a),
+                 n * (squarings * IMAD_SQ + 11 * IMAD_MUL), 2 * n * FE_BYTES))
     def ladder_operands(n):
         """n rows and scalars: the edge points against the edge scalars,
         paired cyclically over the first (at most 2 x the edge points)

@@ -11,7 +11,12 @@ launch path with them: ``fe_sq`` [272] and ``fe_add`` [10,000]; and the
 binary ladder ``ge_ladder_bin`` at the verify path's 147 and 402 points
 and at 1024 (``bench_group4`` times it too, but loads another checkout's
 library into this one's wrappers, which a checkout of another C interface
-cannot serve).  Then the walls downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add``
+cannot serve); and the Fermat chains, each at the width its checkout's
+wrapper picks: ``fe_invert`` on one element (``batch_invert``'s total, a
+point's ``to_bytes``) and at 4096, ``fe_pow2523`` at 17, 272 and 17,408
+(the decompression of one verify, of a merged batch of 16 and of 1024
+proofs).  Then the
+walls downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add``
 and 854 ``fe_mul`` launches), host prove at n = 64, ``msm_auto`` at 2^11
 (the Straus route over ``ge_add`` / ``ge_double``) and at 2^20 with
 ``config.MSM_ACCUM_KERNEL`` off (the sort-plus-scan route, 4,160
@@ -63,11 +68,14 @@ import torch
 SEED = 20261019
 ROOT = Path(__file__).resolve().parents[2]
 RUN = 100                  # launches in a timed run
+PROFILE_TRIES = 3
 CALL_REPS = 7
 N_BITS = 64
 MSM_STRAUS = 1 << 11
 MSM_SCAN = 1 << 20
 LADDER_BIN_SIZES = (147, 402, 1024)
+CHAIN_CASES = (("fe_invert", 1), ("fe_invert", 4096), ("fe_pow2523", 17),
+               ("fe_pow2523", 272), ("fe_pow2523", 17 * 1024))
 # wall cases: label -> repetitions (median)
 WALL_REPS = {"cli.main(['--benchmark'])": 1, f"host prove n={N_BITS}": 5,
              f"msm_auto n={MSM_STRAUS}": 3,
@@ -113,27 +121,34 @@ def call_ms(fn, reps: int = CALL_REPS) -> float:
 
 def device_ms(fn, kernel: str, reps: int) -> tuple:
     """(device ms a launch of the kernels named `kernel`, device ms of
-    every kernel a call, kernels a call) over `reps` calls, from the
-    profiler's raw event records ('' matches every kernel)."""
+    every kernel a call, kernels a call, runs profiled) over `reps` calls,
+    from the profiler's raw event records ('' matches every kernel).  The
+    profiler now and then records none of a run's kernels: such a run is
+    profiled again, up to PROFILE_TRIES times, and the runs it took are
+    reported (kernels a call below the case's count show records dropped
+    from a run that was kept)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    own_ns = own = all_ns = count = 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        count += 1
-        all_ns += e.duration_ns()
-        if kernel in e.name():
-            own += 1
-            own_ns += e.duration_ns()
-    if not own:
-        raise AssertionError(f"the profiler saw no {kernel!r} kernel")
-    return own_ns / 1e6 / own, all_ns / 1e6 / reps, count / reps
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        own_ns = own = all_ns = count = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != torch.autograd.DeviceType.CUDA:
+                continue
+            count += 1
+            all_ns += e.duration_ns()
+            if kernel in e.name():
+                own += 1
+                own_ns += e.duration_ns()
+        if own:
+            return (own_ns / 1e6 / own, all_ns / 1e6 / reps, count / reps,
+                    tries)
+    raise AssertionError(f"the profiler saw no {kernel!r} kernel in "
+                         f"{PROFILE_TRIES} runs")
 
 
 def allocations(fn) -> int:
@@ -188,6 +203,12 @@ def kernel_cases(dev) -> list:
                lambda: cuda_field.sq(a), lambda: F.sq_plain(a)),
               ("fe_add [10000] contiguous", "fe_add3_kernel",
                lambda: cuda_field.add(a4, b4), lambda: F.add3_plain(a4, b4))]
+    for name, n in CHAIN_CASES:
+        x = rows(n, F.L)
+        fn, plain = ((cuda_field.invert, F.invert_plain) if name == "fe_invert"
+                     else (cuda_field.pow2523, F.pow2523_plain))
+        cases.append((f"{name} [{n}] contiguous", f"{name}_kernel",
+                      lambda fn=fn, x=x: fn(x), lambda p=plain, x=x: p(x)))
     for n in LADDER_BIN_SIZES:
         base = C.unflatten(rows(n, 4 * F.L))
         k = torch.from_numpy(rng.integers(0, 1 << F.W, size=(n, F.L),
@@ -210,11 +231,11 @@ def measure_kernels(dev) -> list:
         torch.cuda.synchronize()
         if not torch.equal(got, joined(plain())):
             raise AssertionError(f"{label}: kernel != plain")
-        own, every, per_call = device_ms(fn, kernel, RUN)
+        own, every, per_call, tries = device_ms(fn, kernel, RUN)
         out.append({"case": label, "call_ms": call_ms(fn),
                     "run_ms": run_ms(fn, RUN), "device_ms": own,
                     "device_all_ms": every, "kernels_a_call": per_call,
-                    "allocations": allocations(fn), "digest": digest(got)})
+                    "profile_runs": tries, "allocations": allocations(fn), "digest": digest(got)})
     return out
 
 
@@ -325,7 +346,8 @@ def line(rec: dict) -> str:
             f"{rec['run_ms']:.4f} ms a launch over {RUN}, device "
             f"{rec['device_ms']:.4f} ms a launch (every kernel "
             f"{rec['device_all_ms']:.4f} ms, {rec['kernels_a_call']:g} "
-            f"a call), {rec['allocations']} allocations a call")
+            f"a call; profiled {rec['profile_runs']}x), "
+            f"{rec['allocations']} allocations a call")
 
 
 def key(rec: dict) -> str:
@@ -368,6 +390,9 @@ def against(other: Path) -> None:
             runs = [r[i] for r in got[lab]]
             vals = "; ".join(f"{f} " + " ".join(f"{r[f]:.4f}" for r in runs)
                              for f in fields)
+            if "wall" not in rec:     # an older checkout profiles once
+                vals += "; profile_runs " + " ".join(
+                    str(r.get("profile_runs", 1)) for r in runs)
             print(f"ab {key(rec)} [{lab}] {vals}", flush=True)
     print("ab: every output the same in every turn", flush=True)
 

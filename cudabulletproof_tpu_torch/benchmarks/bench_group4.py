@@ -45,7 +45,11 @@ each checkout's own package.
 
 ``--sweep`` times this checkout's scan and fold at other layouts (the scan
 of 2^16 points in SWEEP_SCAN_LANES lanes, of 2^15 in all but the last; the
-fold's tables in SWEEP_FOLD_LANES lanes), each equal to its twin.
+fold's tables in SWEEP_FOLD_LANES lanes), each equal to its twin; then the
+Fermat chains ``fe_invert`` and ``fe_pow2523`` at every group width
+(``config.CHAIN_WIDTHS``) and the counts the paths run
+(SWEEP_CHAIN_COUNTS), each equal to its twin: where
+``config.CHAIN_LANES_CUDA`` comes from.
 
 Prints the card's ``name, power.limit`` first, then one line a shape and
 library: ``<kernel> n=<n> <shape> [<library>] <ms> ms ... bound <ms> ms``.
@@ -67,11 +71,12 @@ import torch
 from .. import config
 from ..models import rangeproof as RP
 from ..models.generators import get_generators
-from ..ops import (cuda_curve, curve as C, field as F, msm as M,
-                   pippenger as PP)
+from ..ops import (cuda_curve, cuda_field, curve as C, field as F,
+                   msm as M, pippenger as PP)
 from ..utils import build, oracle
 from ..utils.profiling import (FE_BYTES, IMAD_ADD, IMAD_DBL, IMAD_MADD,
-                               PT_BYTES, bound, imad_per_s, smi)
+                               IMAD_MUL, IMAD_SQ, PT_BYTES, bound,
+                               imad_per_s, smi)
 
 SEED = 20261018
 LADDER_SIZES = (147, 402, config.MSM_LADDER_MAX)
@@ -89,6 +94,12 @@ FOLD_ROWS = (8191, 2047)
 JAX_FOLD_LANES = 128
 SWEEP_SCAN_LANES = (1024, 2048, 4096, 8192)
 SWEEP_FOLD_LANES = (128, 256, 512, 1024, 2048, 4096)
+# the Fermat chains' counts on the paths: one element (batch_invert's
+# total, one point's to_bytes), the decompression of one verify and of
+# merged batches of 16, 128, 256 and 1024 proofs (17 points a proof)
+SWEEP_CHAIN_COUNTS = (1, 17, 272, 2176, 4352, 17408)
+# the chains' squarings before their 11 multiplies
+CHAIN_SQUARINGS = {"fe_invert": 254, "fe_pow2523": 251}
 
 
 def ladder_work(n: int) -> tuple:
@@ -145,6 +156,14 @@ def fold_work(m: int, lanes: int) -> tuple:
     adds = 2 * depth * lanes + stages + lanes + lanes - 1
     dbls = (depth.bit_length() - 1) * lanes
     return adds * IMAD_ADD + dbls * IMAD_DBL, (m + 1) * PT_BYTES
+
+
+def chain_work(kernel: str, n: int) -> tuple:
+    """(IMADs, bytes) of a Fermat chain over n elements: its squarings at
+    fe_sq's and its 11 multiplies at fe_mul's count; each element read
+    once and written once."""
+    return (n * (CHAIN_SQUARINGS[kernel] * IMAD_SQ + 11 * IMAD_MUL),
+            2 * n * FE_BYTES)
 
 
 def sorted_heads(rng, n: int, values: int) -> np.ndarray:
@@ -341,13 +360,32 @@ def sweep_cases(dev):
     return out
 
 
+def chain_cases(dev):
+    """fe_invert and fe_pow2523 at every width and SWEEP_CHAIN_COUNTS on
+    weak-limb rows (the twin run once a kernel and count)."""
+    rng = np.random.default_rng(SEED + 3)
+    kernels = {"fe_invert": (cuda_field.invert, F.invert_plain),
+               "fe_pow2523": (cuda_field.pow2523, F.pow2523_plain)}
+    out = []
+    for kernel, (fn, plain) in kernels.items():
+        for n in SWEEP_CHAIN_COUNTS:
+            a = torch.from_numpy(rng.integers(
+                0, F.BOUND + 1, size=(n, F.L), dtype=np.int32)).to(dev)
+            want = plain(a)
+            out += [Case(kernel, n, fixed(
+                f"[lanes {g}]", lambda a=a, g=g, fn=fn: fn(a, g),
+                lambda want=want: want, *chain_work(kernel, n)))
+                for g in config.CHAIN_WIDTHS]
+    return out
+
+
 def kernel_names(split: dict) -> str:
     """'; device ms a launch: <kernel> <ms> x <launches a call>, ...' of the
     port's kernels in a device_ms_by_kernel result (template instances of
     one kernel summed)."""
     parts = {}
     for name, (ms, k) in split.items():
-        m = re.search(r"(ge|sort)_[a-z0-9_]+_kernel", name)
+        m = re.search(r"(ge|sort|fe)_[a-z0-9_]+_kernel", name)
         if m:
             total, n = parts.get(m.group(0), (0.0, 0.0))
             parts[m.group(0)] = (total + ms * k, n + k)
@@ -457,7 +495,8 @@ def main(argv=None) -> int:
     ap.add_argument("--against", type=Path, default=None,
                     help="root of another checkout: A/B its kernels")
     ap.add_argument("--sweep", action="store_true",
-                    help="the scan and fold at other layouts")
+                    help="the scan and fold at other layouts, the Fermat "
+                    "chains at every width")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_group4: needs a CUDA device", file=sys.stderr)
@@ -475,6 +514,9 @@ def main(argv=None) -> int:
         run_case(case, libs, turns, args.reps, rate)
     if args.sweep:
         for case in sweep_cases(dev):
+            print("sweep ", end="")
+            run_case(case, libs[-1:], libs[-1:], args.reps, rate)
+        for case in chain_cases(dev):
             print("sweep ", end="")
             run_case(case, libs[-1:], libs[-1:], args.reps, rate)
     if args.against is not None:

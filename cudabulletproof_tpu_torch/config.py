@@ -93,6 +93,34 @@ def fold_lanes(device) -> int:
     return MSM_FOLD_LANES_CUDA if device.type == "cuda" else MSM_FOLD_LANES
 
 
+# The group widths of the Fermat chain kernels (fe_invert, fe_pow2523): an
+# element's ~265 dependent field products run on G lanes (G divides 20;
+# csrc/fe25519.cuh's feg_mul), a wide group for the latency of a few
+# elements, a narrow one for the throughput of many.  CHAIN_LANES_CUDA
+# holds (most elements, G) in rising order, the last entry for any count.
+# From bench_group4 --sweep of both kernels at the counts the paths run
+# (1, 17, 272, 2176, 4352, 17408) and G = 1, 2, 4, 5, 10, 20 on an H100
+# (PERF.md section 6; device ms a launch): G = 10 is the fastest at 1 to
+# 272 elements (0.0439-0.0450; G = 5 0.0472-0.0488, G = 1 0.113-0.118),
+# G = 5 at 2176 (0.048-0.049; G = 10 0.065) and 4352 (0.074-0.075; G = 10
+# 0.082-0.084), G = 1 at 17,408 (0.172-0.174; G = 4 and 5 0.206-0.216).
+# A count between two swept counts takes the width of the larger.  G = 2,
+# 4 and 20 won at no count and are not built.
+CHAIN_WIDTHS = (1, 5, 10)
+CHAIN_LANES_CUDA = ((272, 10), (4352, 5), (None, 1))
+
+
+def chain_lanes(device, n: int) -> int:
+    """Group width G of fe_invert / fe_pow2523 for n elements on `device`,
+    a CUDA torch.device (the CPU runs their twins, which have no width)."""
+    if device.type != "cuda":
+        raise ValueError(f"no chain width on {device}: the twins run there")
+    for most, lanes in CHAIN_LANES_CUDA[:-1]:
+        if n <= most:
+            return lanes
+    return CHAIN_LANES_CUDA[-1][1]
+
+
 # The accumulator's plan at the padded sizes the port runs: points ->
 # (window bits w, threads a block, blocks a window), a "thread" being a
 # unit of the four lanes that hold a point.  2^12 and 2^13 are the

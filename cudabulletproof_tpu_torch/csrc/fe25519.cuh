@@ -6,6 +6,8 @@
 //   ge_padd  <- cudabulletproof_tpu/ops/pallas_curve.py::_padd
 //   ge4_pdbl <- pallas_curve.py::_pdbl (on four lanes, below)
 //   ge_madd  <- pallas_curve.py::_madd
+//   feg_pow2523 / feg_invert <- pallas_field.py::_pow2523_kernel /
+//            _invert_kernel (their _pow_chain_250_block), on G lanes (below)
 //
 // Representation (unchanged from the JAX package, so every kernel output
 // equals its plain torch twin limb for limb): a field element is 20 int32
@@ -19,12 +21,14 @@
 // coefficient stays below 20 * 8799^2 = 1.55e9 < 2^31 (1.63e9 for the
 // squaring's doubled cross terms), so 32-bit IMAD is exact; the fold adds
 // at most 608 * 2^18, still < 2^31.  Against 160-240 bytes moved per element
-// the work is compute-bound, so the design keeps each element's limbs and
-// the 39 coefficients in registers (one thread per element, fully unrolled
-// loops with static indices) and touches memory once per operand.  The
-// relaxation is the parallel form t <- (t & MASK) + roll(t >> 13) (the carry
-// out of limb 19 re-enters limb 0 times 608 = 2^260 mod p), exactly the
-// Pallas kernels' op order; three passes suffice (the JAX package's
+// the work is compute-bound, so fe_mul / fe_sq keep an element's limbs and
+// the 39 coefficients in one thread's registers (fully unrolled loops with
+// static indices) and touch memory once per operand.  Where one element's
+// chain of dependent products is the whole launch (the Fermat chains), the
+// product is split over G lanes instead (feg_mul, at the end of this file).
+// The relaxation is the parallel form t <- (t & MASK) + roll(t >> 13) (the
+// carry out of limb 19 re-enters limb 0 times 608 = 2^260 mod p), exactly
+// the Pallas kernels' op order; three passes suffice (the JAX package's
 // tests/test_bounds.py proves the count).
 //
 // The point routines are __noinline__: the ladder calls them ~300 times per
@@ -147,47 +151,6 @@ __device__ __forceinline__ fe fe_sub(const fe& a, const fe& b) {
   for (int i = 1; i < FE_L; ++i) r.v[i] = a.v[i] + (FE_KNEG - b.v[i]);
   fe_relax<2>(r);
   return r;
-}
-
-// a^(2^n); a runtime loop, so the chain's long squaring runs stay small.
-__device__ __forceinline__ fe fe_sqn(fe a, int n) {
-#pragma unroll 1
-  for (int k = 0; k < n; ++k) a = fe_sq(a);
-  return a;
-}
-
-// Shared prefix of the Fermat ladders (pallas_field.py::_pow_chain_250_block):
-// returns z^(2^250 - 1) and sets z11 = z^11.
-__device__ __forceinline__ fe fe_pow_chain_250(const fe& z, fe& z11) {
-  fe z2 = fe_sq(z);
-  fe z8 = fe_sqn(z2, 2);
-  fe z9 = fe_mul(z, z8);
-  z11 = fe_mul(z2, z9);
-  fe z22 = fe_sq(z11);
-  fe z_5_0 = fe_mul(z9, z22);
-  fe z_10_0 = fe_mul(fe_sqn(z_5_0, 5), z_5_0);
-  fe z_20_0 = fe_mul(fe_sqn(z_10_0, 10), z_10_0);
-  fe z_40_0 = fe_mul(fe_sqn(z_20_0, 20), z_20_0);
-  fe z_50_0 = fe_mul(fe_sqn(z_40_0, 10), z_10_0);
-  fe z_100_0 = fe_mul(fe_sqn(z_50_0, 50), z_50_0);
-  fe z_200_0 = fe_mul(fe_sqn(z_100_0, 100), z_100_0);
-  return fe_mul(fe_sqn(z_200_0, 50), z_50_0);
-}
-
-// z^(2^252 - 3): the chain, then 2 squarings and a multiply by z (the
-// _pow2523_kernel body).
-__device__ __forceinline__ fe fe_pow2523(const fe& z) {
-  fe z11;
-  const fe z_250_0 = fe_pow_chain_250(z, z11);
-  return fe_mul(fe_sqn(z_250_0, 2), z);
-}
-
-// z^(p - 2) = z^(2^255 - 21): the chain, then 5 squarings and a multiply by
-// z^11 (the _invert_kernel body).  Zero maps to zero.
-__device__ __forceinline__ fe fe_invert(const fe& z) {
-  fe z11;
-  const fe z_250_0 = fe_pow_chain_250(z, z11);
-  return fe_mul(fe_sqn(z_250_0, 5), z11);
 }
 
 __device__ __forceinline__ ge ge_load(const int32_t* __restrict__ p) {
@@ -393,6 +356,235 @@ __device__ __forceinline__ fe ge4_madd(const lane4& g, const fe& p,
   fe r = fe_mul(fe_sel(k < 2, fe_addsub(py, px, k == 0), p), q);  // a | b | - | c
   if (k == 2) r = fe_add(p, p);                                  // d
   return ge4_finish(g, r);
+}
+
+// ---------------------------------------------------------------------------
+// The field product split over G lanes (the Fermat chains of fe_invert and
+// fe_pow2523).
+//
+// An element lives on a group of G consecutive lanes of a warp, G a divisor
+// of 20: lane g of the group holds limbs gK .. gK + K - 1 (K = 20 / G) in
+// registers.  For each limb k = gK + t it holds, lane g computes the
+// convolution coefficients c_k and c_{20+k}: 20 products a limb, 400 / G a
+// lane.  A squaring is the multiply of a by itself: the symmetric half that
+// fe_sq takes has no static form once the coefficients a lane owns depend
+// on its place g.  Then the lane folds and relaxes its own limbs as
+// fe_fold_relax does; the fold term and each pass's carry that cross into
+// its first limb come from the lane below by one shuffle, limb 19's carry
+// times 608 into limb 0 on lane 0.
+//
+// Static register indices: each lane gathers all 20 limbs of b (limb i from
+// lane i / K, register i % K) and a rotated by its first limb, P[s] =
+// a_{(gK + s) mod 20} (lane (g + s / K) mod G, register s % K).  Then
+// P[s] * b_{(t - s) mod 20} is a term of c_{gK+t} where s <= t or where a's
+// index wrapped (g + s / K >= G), else a term of c_{20+gK+t}.  Past block
+// s < K the choice is one for a whole block of K values of s, and the
+// unwrapped blocks come first: one running sum a limb takes every block,
+// and its value after the last unwrapped block is c_{20+k}; the rest
+// belongs to c_k.  Each coefficient is a sum of the same non-negative
+// products as bp::fe_mul's, every partial sum below 2^31, exact in any
+// order; the fold and the passes are the same per-limb operations.  So the
+// result is fe_mul's (fe_sq's) limb for limb, and the chains' are the
+// twins'.
+//
+// Shuffles span the whole warp (__shfl_sync of width 32 with an absolute
+// source lane: 5 and 10 are no power of two), so every lane runs every
+// product, lanes outside a group on zeros.  A gather through shared memory
+// (each lane stores its limbs, __syncwarp, loads) was as fast at one
+// element and up to 1.5x slower at many (bench_group4 --sweep on an H100,
+// PERF.md).  G = 1 is bp::fe_mul / bp::fe_sq on one thread.
+//
+// What bounds it: a chain of ~265 dependent products, each link the
+// gather's 40 shuffles, 400 / G IMADs a lane (210 at G = 1) in a chain of
+// ~20 a limb, and the fold's and the three passes' shuffles, one after
+// another.  A narrow G does fewer instructions an element (the throughput
+// of a large batch), a wide one shortens each link (the latency of the few
+// elements the paths invert); config.chain_lanes picks G by the count.
+// Recomputing the carries from the coefficients of the four limbs below
+// (one round of shuffles, the fold and passes on K + 4 limbs) and two
+// running sums a limb were no faster at any G (bench_group4 --sweep on an
+// H100, PERF.md): the extra instructions cost what the shorter chain saved.
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+template <int G>
+struct feg {
+  static_assert(FE_L % G == 0, "the group width divides 20");
+  int32_t v[FE_L / G];
+};
+
+// This lane's place g in its group and the group's first lane.
+template <int G>
+struct laneg {
+  int g;
+  int base;
+};
+
+template <int G>
+__device__ __forceinline__ laneg<G> laneg_here() {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  return laneg<G>{lane % G, lane - lane % G};
+}
+
+// The lane of this group q places above this one, mod G.
+template <int G>
+__device__ __forceinline__ int laneg_up(const laneg<G>& l, int q) {
+  const int h = l.g + q;
+  return l.base + (h >= G ? h - G : h);
+}
+
+// B[i] = limb i of the group's b; P[s] = its a's limb (gK + s) mod 20.
+template <int G>
+__device__ __forceinline__ void feg_gather(const laneg<G>& l,
+                                           const feg<G>& a, const feg<G>& b,
+                                           int32_t (&P)[FE_L],
+                                           int32_t (&B)[FE_L]) {
+  constexpr int K = FE_L / G;
+#pragma unroll
+  for (int i = 0; i < FE_L; ++i)
+    B[i] = __shfl_sync(kFullWarp, b.v[i % K], l.base + i / K);
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const int src = laneg_up(l, q);
+#pragma unroll
+    for (int r = 0; r < K; ++r) P[q * K + r] = __shfl_sync(kFullWarp, a.v[r], src);
+  }
+}
+
+// PASSES rounds of fe_relax on the group's limbs: the carry out of a lane's
+// last limb enters the next lane's first by one shuffle (limb 19's times
+// 608 into limb 0, on lane 0).
+template <int G, int PASSES>
+__device__ __forceinline__ void feg_relax(const laneg<G>& l, feg<G>& x) {
+  constexpr int K = FE_L / G;
+  const int below = laneg_up(l, G - 1);
+#pragma unroll
+  for (int k = 0; k < PASSES; ++k) {
+    int32_t c[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) c[t] = x.v[t] >> FE_W;
+    int32_t cin = __shfl_sync(kFullWarp, c[K - 1], below);
+    if (l.g == 0) cin *= FE_FOLD;
+    x.v[0] = (x.v[0] & FE_MASK) + cin;
+#pragma unroll
+    for (int t = 1; t < K; ++t) x.v[t] = (x.v[t] & FE_MASK) + c[t - 1];
+  }
+}
+
+template <int G>
+__device__ __forceinline__ feg<G> feg_mul(const laneg<G>& l, const feg<G>& a,
+                                          const feg<G>& b) {
+  constexpr int K = FE_L / G;
+  feg<G> r;
+  if constexpr (G == 1) {
+    fe x, y;
+#pragma unroll
+    for (int i = 0; i < FE_L; ++i) {
+      x.v[i] = a.v[i];
+      y.v[i] = b.v[i];
+    }
+    const fe z = fe_mul(x, y);
+#pragma unroll
+    for (int i = 0; i < FE_L; ++i) r.v[i] = z.v[i];
+  } else {
+    int32_t P[FE_L], B[FE_L];
+    feg_gather(l, a, b, P, B);
+    int32_t lo[K], hi[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      int32_t c = 0;
+#pragma unroll
+      for (int s = 0; s <= t; ++s) c += P[s] * B[t - s];
+      int32_t run = 0;
+#pragma unroll
+      for (int s = t + 1; s < K; ++s) run += P[s] * B[FE_L + t - s];
+      int32_t snap = run;
+#pragma unroll
+      for (int q = 1; q < G; ++q) {
+#pragma unroll
+        for (int u = 0; u < K; ++u) run += P[q * K + u] * B[FE_L + t - q * K - u];
+        if (l.g + q < G) snap = run;          // block q did not wrap
+      }
+      lo[t] = c + (run - snap);
+      hi[t] = snap;
+    }
+    // the fold: c_{20+k} of the limb below this lane's first comes from the
+    // lane below (none below limb 0)
+    int32_t below = __shfl_sync(kFullWarp, hi[K - 1], laneg_up(l, G - 1));
+    if (l.g == 0) below = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      r.v[t] = lo[t] + FE_FOLD * (hi[t] & FE_MASK) + FE_FOLD * (below >> FE_W);
+      below = hi[t];
+    }
+    feg_relax<G, 3>(l, r);
+  }
+  return r;
+}
+
+template <int G>
+__device__ __forceinline__ feg<G> feg_sq(const laneg<G>& l, const feg<G>& a) {
+  if constexpr (G == 1) {
+    fe x;
+#pragma unroll
+    for (int i = 0; i < FE_L; ++i) x.v[i] = a.v[i];
+    const fe z = fe_sq(x);
+    feg<G> r;
+#pragma unroll
+    for (int i = 0; i < FE_L; ++i) r.v[i] = z.v[i];
+    return r;
+  } else {
+    return feg_mul(l, a, a);
+  }
+}
+
+// a^(2^n); a runtime loop, so the chain's long squaring runs stay small.
+template <int G>
+__device__ __forceinline__ feg<G> feg_sqn(const laneg<G>& l, feg<G> a, int n) {
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) a = feg_sq(l, a);
+  return a;
+}
+
+// Shared prefix of the Fermat ladders (pallas_field.py::_pow_chain_250_block):
+// returns z^(2^250 - 1) and sets z11 = z^11.
+template <int G>
+__device__ __forceinline__ feg<G> feg_pow_chain_250(const laneg<G>& l,
+                                                    const feg<G>& z,
+                                                    feg<G>& z11) {
+  const feg<G> z2 = feg_sq(l, z);
+  const feg<G> z8 = feg_sqn(l, z2, 2);
+  const feg<G> z9 = feg_mul(l, z, z8);
+  z11 = feg_mul(l, z2, z9);
+  const feg<G> z22 = feg_sq(l, z11);
+  const feg<G> z_5_0 = feg_mul(l, z9, z22);
+  const feg<G> z_10_0 = feg_mul(l, feg_sqn(l, z_5_0, 5), z_5_0);
+  const feg<G> z_20_0 = feg_mul(l, feg_sqn(l, z_10_0, 10), z_10_0);
+  const feg<G> z_40_0 = feg_mul(l, feg_sqn(l, z_20_0, 20), z_20_0);
+  const feg<G> z_50_0 = feg_mul(l, feg_sqn(l, z_40_0, 10), z_10_0);
+  const feg<G> z_100_0 = feg_mul(l, feg_sqn(l, z_50_0, 50), z_50_0);
+  const feg<G> z_200_0 = feg_mul(l, feg_sqn(l, z_100_0, 100), z_100_0);
+  return feg_mul(l, feg_sqn(l, z_200_0, 50), z_50_0);
+}
+
+// z^(2^252 - 3): the chain, then 2 squarings and a multiply by z (the
+// _pow2523_kernel body).
+template <int G>
+__device__ __forceinline__ feg<G> feg_pow2523(const laneg<G>& l,
+                                              const feg<G>& z) {
+  feg<G> z11;
+  const feg<G> z_250_0 = feg_pow_chain_250(l, z, z11);
+  return feg_mul(l, feg_sqn(l, z_250_0, 2), z);
+}
+
+// z^(p - 2) = z^(2^255 - 21): the chain, then 5 squarings and a multiply by
+// z^11 (the _invert_kernel body).  Zero maps to zero.
+template <int G>
+__device__ __forceinline__ feg<G> feg_invert(const laneg<G>& l,
+                                             const feg<G>& z) {
+  feg<G> z11;
+  const feg<G> z_250_0 = feg_pow_chain_250(l, z, z11);
+  return feg_mul(l, feg_sqn(l, z_250_0, 5), z11);
 }
 
 }  // namespace bp

@@ -1,4 +1,5 @@
-// Field kernels of the port, one thread per field element.
+// Field kernels of the port: one thread per field element, but for the
+// Fermat chains, which run each element on a group of G lanes.
 //
 //   fe_mul_kernel      replaces cudabulletproof_tpu/ops/pallas_field.py::_mul_kernel
 //   fe_sq_kernel       replaces pallas_field.py::_sq_kernel
@@ -29,10 +30,18 @@
 // or launch latency at the verify path's small batches (17 to 272
 // elements).  fe_pow2523 (251 squarings + 11 multiplies) and fe_invert
 // (254 squarings + 11 multiplies) run the whole Fermat chain on
-// register-resident limbs: ~265 field ops per element and 160 bytes of
-// traffic, so they are IMAD-bound, and no memory traffic between the ops,
-// which is what the Pallas kernels' VMEM-resident chain bought on the TPU.
-// Both share fe_pow_chain_250 (fe25519.cuh), as the Pallas kernels share
+// register-resident limbs (no memory traffic between the ops, which is
+// what the Pallas kernels' VMEM-resident chain bought on the TPU): ~265
+// dependent field products an element against 160 bytes of traffic.  The
+// paths run them on 1 element (batch_invert's total, one point's
+// to_bytes) to 17 x B (decompression), where one thread an element leaves
+// the card nearly empty and the launch takes the chain's latency (~900
+// cycles a product).  So each element runs on a group of G lanes (G | 20,
+// fe25519.cuh's split product feg_mul): each link of the chain is 400 / G
+// IMADs a lane plus ~44 shuffles, shorter for a wide group, while a narrow
+// one does fewer instructions an element for a large batch; the wrapper
+// picks G by the count (config.chain_lanes, from bench_group4 --sweep).
+// Both share feg_pow_chain_250, as the Pallas kernels share
 // _pow_chain_250_block.
 //
 // fe_add3 / fe_sub3 are a + b and a + (K - b) (K the multiple of p of
@@ -83,6 +92,11 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMulThreads = 32;
+constexpr int kWarp = 32;
+
+unsigned int blocks_for(int64_t n, int threads = kThreads) {
+  return static_cast<unsigned int>((n + threads - 1) / threads);
+}
 
 // a, b rows at strides sa, sb (int32; 0 = one element broadcast).
 __global__ void __launch_bounds__(kMulThreads)
@@ -102,20 +116,78 @@ __global__ void fe_sq_kernel(const int32_t* __restrict__ a,
   bp::fe_store(out + i * bp::FE_L, bp::fe_sq(bp::fe_load(a + i * bp::FE_L)));
 }
 
-__global__ void fe_pow2523_kernel(const int32_t* __restrict__ a,
-                                  int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  bp::fe_store(out + i * bp::FE_L,
-               bp::fe_pow2523(bp::fe_load(a + i * bp::FE_L)));
+// The Fermat chains: one-warp blocks of 32 / G elements, each on a group of
+// G lanes (fe25519.cuh's feg_*); lanes past the last group and elements
+// past n run on zeros and store nothing, so every shuffle is defined.
+template <int G, bool kInvert>
+__device__ __forceinline__ void fe_chain(const int32_t* __restrict__ a,
+                                         int32_t* __restrict__ out,
+                                         int64_t n) {
+  constexpr int K = bp::FE_L / G;
+  constexpr int kElems = kWarp / G;
+  const bp::laneg<G> l = bp::laneg_here<G>();
+  const int slot = static_cast<int>(threadIdx.x) / G;
+  const int64_t e = blockIdx.x * static_cast<int64_t>(kElems) + slot;
+  const bool live = slot < kElems && e < n;
+  const int64_t at = e * bp::FE_L + l.g * K;
+  bp::feg<G> z;
+#pragma unroll
+  for (int r = 0; r < K; ++r) z.v[r] = 0;
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < K; ++r) z.v[r] = a[at + r];
+  }
+  bp::feg<G> y;
+  if constexpr (kInvert) {
+    y = bp::feg_invert(l, z);
+  } else {
+    y = bp::feg_pow2523(l, z);
+  }
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < K; ++r) out[at + r] = y.v[r];
+  }
 }
 
-__global__ void fe_invert_kernel(const int32_t* __restrict__ a,
-                                 int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  bp::fe_store(out + i * bp::FE_L,
-               bp::fe_invert(bp::fe_load(a + i * bp::FE_L)));
+template <int G>
+__global__ void __launch_bounds__(kWarp)
+fe_pow2523_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                  int64_t n) {
+  fe_chain<G, false>(a, out, n);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kWarp)
+fe_invert_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                 int64_t n) {
+  fe_chain<G, true>(a, out, n);
+}
+
+template <int G, bool kInvert>
+int launch_chain_at(const int32_t* a, int32_t* out, int64_t n,
+                    cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const unsigned int blocks = blocks_for(n, kWarp / G);
+  if constexpr (kInvert) {
+    fe_invert_kernel<G><<<blocks, kWarp, 0, stream>>>(a, out, n);
+  } else {
+    fe_pow2523_kernel<G><<<blocks, kWarp, 0, stream>>>(a, out, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chain at group width `lanes` (config.CHAIN_WIDTHS: 1, 5 or 10, the
+// widths config.chain_lanes picks; any other refused).
+template <bool kInvert>
+int launch_chain(const int32_t* a, int32_t* out, int64_t n, int64_t lanes,
+                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1: return launch_chain_at<1, kInvert>(a, out, n, s);
+    case 5: return launch_chain_at<5, kInvert>(a, out, n, s);
+    case 10: return launch_chain_at<10, kInvert>(a, out, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 __global__ void fe_add3_kernel(const int32_t* __restrict__ a,
@@ -215,10 +287,6 @@ fe_inner_product_kernel(const int32_t* __restrict__ a,
   }
 }
 
-unsigned int blocks_for(int64_t n, int threads = kThreads) {
-  return static_cast<unsigned int>((n + threads - 1) / threads);
-}
-
 }  // namespace
 
 // a, b: base pointers and row strides in int32 (0 = broadcast); out [n, 20].
@@ -238,20 +306,15 @@ extern "C" int bp_fe_sq(const int32_t* a, int32_t* out, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a, out [n, 20]; lanes the group width G (config.chain_lanes).
 extern "C" int bp_fe_pow2523(const int32_t* a, int32_t* out, int64_t n,
-                             void* stream) {
-  if (n <= 0) return 0;
-  fe_pow2523_kernel<<<blocks_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a, out, n);
-  return static_cast<int>(cudaGetLastError());
+                             int64_t lanes, void* stream) {
+  return launch_chain<false>(a, out, n, lanes, stream);
 }
 
 extern "C" int bp_fe_invert(const int32_t* a, int32_t* out, int64_t n,
-                            void* stream) {
-  if (n <= 0) return 0;
-  fe_invert_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a, out, n);
-  return static_cast<int>(cudaGetLastError());
+                            int64_t lanes, void* stream) {
+  return launch_chain<true>(a, out, n, lanes, stream);
 }
 
 extern "C" int bp_fe_add(const int32_t* a, const int32_t* b, int32_t* out,

@@ -20,7 +20,9 @@ passes as its data pointer and one row stride (``operand``), so that on the
 paths' layouts -- contiguous rows, coordinate views of a point row, slices
 of them, a broadcast row -- a call allocates only its output and launches
 once; an operand whose batch dims do not flatten to one stride is copied
-first.  ``inner_product_partial``
+first.  ``pow2523`` and ``invert`` also pass the width G of the lane
+groups that run each element's Fermat chain (``config.chain_lanes`` for
+the count unless the caller names one).  ``inner_product_partial``
 takes ``[B, n, 20]`` operands and returns the kernels' ``[B, 39, 256]``
 partial sums (zeroed with ``torch.zeros`` before the launch), which
 ``field.ip_combine`` turns into limbs.  It raises on anything the
@@ -38,6 +40,7 @@ import math
 
 import torch
 
+from .. import config
 from ..utils import build
 
 L = 20
@@ -157,12 +160,25 @@ def sq(a: torch.Tensor) -> torch.Tensor:
     return _run("fe_sq", a)
 
 
-def pow2523(a: torch.Tensor) -> torch.Tensor:
-    return _run("fe_pow2523", a)
+def _chain(name: str, a: torch.Tensor, lanes=None) -> torch.Tensor:
+    """The Fermat chain kernel `name` (fe_pow2523 or fe_invert) on a, each
+    element on a group of `lanes` lanes (default ``config.chain_lanes`` for
+    the count)."""
+    dev, batch = check_operands(L, (a,))
+    if lanes is None:
+        lanes = config.chain_lanes(dev, math.prod(batch))
+    if lanes not in config.CHAIN_WIDTHS:
+        raise ValueError(f"{name} on groups of {lanes} lanes: the kernels "
+                         f"take {config.CHAIN_WIDTHS}")
+    return _run(name, a, extra=(lanes,))
 
 
-def invert(a: torch.Tensor) -> torch.Tensor:
-    return _run("fe_invert", a)
+def pow2523(a: torch.Tensor, lanes=None) -> torch.Tensor:
+    return _chain("fe_pow2523", a, lanes)
+
+
+def invert(a: torch.Tensor, lanes=None) -> torch.Tensor:
+    return _chain("fe_invert", a, lanes)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

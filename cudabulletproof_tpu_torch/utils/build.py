@@ -42,19 +42,19 @@ _N = ctypes.c_int64
 # C entry points: name -> argument types.  Every pointer and the stream are
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
 # the pointer); every count is c_int64.  Each returns cudaGetLastError().
-ABI = 3                # bp_abi_version() of the sources below
+ABI = 4                # bp_abi_version() of the sources below
 SIGNATURES = {
     # a, row stride of a, b, row stride of b, out, n, stream
     "bp_fe_mul": [_P, _N, _P, _N, _P, _N, _P],
     "bp_fe_sq": [_P, _P, _N, _P],               # a, out, n, stream
-    "bp_fe_pow2523": [_P, _P, _N, _P],          # a, out, n, stream
+    "bp_fe_pow2523": [_P, _P, _N, _N, _P],      # a, out, n, lanes, stream
     # p's x, y, z, t pointers and their row strides, q's, out, n, stream
     "bp_ge_add": [*[_P] * 4, *[_N] * 4, *[_P] * 4, *[_N] * 4, _P, _N, _P],
     # p's x, y, z, t pointers and their row strides, out, n, stream
     "bp_ge_double": [*[_P] * 4, *[_N] * 4, _P, _N, _P],
     "bp_ge_ladder_win": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
     "bp_ge_ladder_bin": [_P, _P, _P, _N, _P],   # p, s, out, n, stream
-    "bp_fe_invert": [_P, _P, _N, _P],           # a, out, n, stream
+    "bp_fe_invert": [_P, _P, _N, _N, _P],       # a, out, n, lanes, stream
     "bp_fe_add": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
     "bp_fe_sub": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
     "bp_fe_inner_product": [_P, _P, _P, _N, _P],  # a, b, partial, n, stream

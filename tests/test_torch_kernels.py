@@ -58,22 +58,65 @@ def test_field_kernels_equal_twins(dev, n):
     assert torch.equal(cuda_field.pow2523(a), TF.pow2523_plain(a))
 
 
-@pytest.mark.parametrize("n", [1, 4096])
+# the Fermat chains' counts: below, at and past a block of 32 / G elements
+# at each width, one verify's decompression (17), a batch of 16's (272)
+# and the kernel table's invert (4096)
+CHAIN_COUNTS = (1, 2, 5, 6, 7, 17, 272, 4096)
+# 0, 1, 2, p-1, all limbs 8191 and every value p .. 2^255 - 1
+CHAIN_EDGES = [_raw(v) for v in (0, 1, 2, TF.P - 1)] + [[0x1FFF] * 20] + [
+    _raw(v) for v in range(TF.P, 1 << 255)]
+
+
+def _chain_operands(rng, n, dev):
+    """n random weak-limb rows with the edge rows over the first of them,
+    then the edge rows alone."""
+    edges = torch.tensor(CHAIN_EDGES, dtype=torch.int32, device=dev)
+    a = _rand(rng, (n, 20), dev)
+    k = min(n, len(CHAIN_EDGES))
+    a[:k] = edges[:k]
+    return a, edges
+
+
+@pytest.mark.parametrize("n", CHAIN_COUNTS)
 def test_invert_kernel_equals_twin(dev, n):
-    """Random weak limbs plus 0, 1, 2, p-1, all limbs 8191 and p..2^255-1;
-    the inverse times the value is 1 (0 for 0)."""
+    """At every group width (config.CHAIN_WIDTHS), on n rows and on the
+    edge rows alone, limb for limb; the public function (at its rule's
+    width) gives the same limbs, and the inverse times the value is 1 (0
+    for 0)."""
     rng = np.random.default_rng(n)
-    edges = [_raw(v) for v in (0, 1, 2, TF.P - 1)] + [[0x1FFF] * 20] + [
-        _raw(v) for v in range(TF.P, 1 << 255)]
-    a = torch.cat([_rand(rng, (n, 20), dev),
-                   torch.tensor(edges, dtype=torch.int32, device=dev)])
-    got = cuda_field.invert(a)
-    assert torch.equal(got, TF.invert_plain(a))
-    assert torch.equal(TF.invert(a), got)
-    one = TF.canonical(TF.mul(got, a))
-    zero = TF.is_zero(a)
-    assert torch.equal(one[..., 0], (~zero).to(torch.int32))
-    assert int(one[..., 1:].abs().sum()) == 0
+    for a in _chain_operands(rng, n, dev):
+        want = TF.invert_plain(a)
+        for lanes in config.CHAIN_WIDTHS:
+            assert torch.equal(cuda_field.invert(a, lanes), want), lanes
+        got = TF.invert(a)
+        assert torch.equal(got, want)
+        one = TF.canonical(TF.mul(got, a))
+        zero = TF.is_zero(a)
+        assert torch.equal(one[..., 0], (~zero).to(torch.int32))
+        assert int(one[..., 1:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n", CHAIN_COUNTS)
+def test_pow2523_kernel_equals_twin(dev, n):
+    """At every group width (config.CHAIN_WIDTHS), on n rows and on the
+    edge rows alone, limb for limb; the public function (at its rule's
+    width) gives the same limbs."""
+    rng = np.random.default_rng(n + 1)
+    for a in _chain_operands(rng, n, dev):
+        want = TF.pow2523_plain(a)
+        for lanes in config.CHAIN_WIDTHS:
+            assert torch.equal(cuda_field.pow2523(a, lanes), want), lanes
+        assert torch.equal(TF.pow2523(a), want)
+
+
+def test_pow2523_kernel_at_batch_of_1024(dev):
+    """17,408 elements, the decompression of a merged batch of 1024 proofs,
+    at the width the rule picks, with the edge rows."""
+    n = 17 * 1024
+    a, _ = _chain_operands(np.random.default_rng(n), n, dev)
+    before = cuda_field.launches["fe_pow2523"]
+    assert torch.equal(TF.pow2523(a), TF.pow2523_plain(a))
+    assert cuda_field.launches["fe_pow2523"] == before + 1
 
 
 # all limbs 8799 or 8191, 0, p-1 and every value p .. 2^255 - 1
@@ -494,6 +537,12 @@ def test_launch_counts_and_refusals(dev):
     assert cuda_curve.launches["ge_ladder_bin"] == before["ge_ladder_bin"] + 1
     inv = cuda_field.launches["fe_invert"]
     TF.invert(a)
+    assert cuda_field.launches["fe_invert"] == inv + 1
+    for width in (0, 2, 3, 4, 20, 32):            # no width the kernels take
+        with pytest.raises(ValueError, match="groups of"):
+            cuda_field.invert(a, width)
+        with pytest.raises(ValueError, match="groups of"):
+            cuda_field.pow2523(a, width)
     assert cuda_field.launches["fe_invert"] == inv + 1
     TF.add3(a, a)
     TF.sub3(a, a)

@@ -10,7 +10,9 @@ which are copied, and -- read back with ``torch.as_strided`` from the
 pointer and the stride, as the kernel reads them -- that row i of the plan
 is row i of the broadcast operand.  Also that every C entry of the kernel
 library takes the arguments ``utils/build.py`` binds (no compiler here),
-and that a library of an older C interface is refused.
+that a library of an older C interface is refused, and that the Fermat
+chain kernels' group width (``config.chain_lanes``) is one they take at
+every count while the CPU path never asks for one.
 """
 import ctypes
 import math
@@ -20,7 +22,9 @@ import types
 import pytest
 import torch
 
-from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field, curve as TC
+from cudabulletproof_tpu_torch import config
+from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
+                                           curve as TC, field as TF)
 from cudabulletproof_tpu_torch.utils import build
 
 L = 20
@@ -139,6 +143,11 @@ def test_c_entries_take_the_bound_arguments():
         "const int32_t* px", "const int32_t* py", "const int32_t* pz",
         "const int32_t* pt", "int64_t spx", "int64_t spy", "int64_t spz",
         "int64_t spt", "int32_t* out", "int64_t n", "void* stream"]
+    # the Fermat chains take the width of their lane groups
+    for name in ("bp_fe_invert", "bp_fe_pow2523"):
+        assert _c_params(src, name) == [
+            "const int32_t* a", "int32_t* out", "int64_t n", "int64_t lanes",
+            "void* stream"]
 
 
 @pytest.mark.parametrize("batch", DOUBLE_BATCHES)
@@ -174,12 +183,13 @@ class _Library:
             setattr(self, name, types.SimpleNamespace())
 
 
-@pytest.mark.parametrize("version", [None, 2, build.ABI, build.ABI + 1])
+@pytest.mark.parametrize("version", [None, 2, 3, build.ABI, build.ABI + 1])
 def test_older_library_is_refused(monkeypatch, version):
     """``build.load`` binds every entry of a library of this checkout's C
     interface, with the argument types of SIGNATURES, and refuses a library
-    of any other (an older ge_double entry took one packed point)."""
-    assert build.ABI == 3
+    of any other (an older ge_double entry took one packed point, older
+    fe_invert / fe_pow2523 entries no group width)."""
+    assert build.ABI == 4
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: _Library(version))
     if version != build.ABI:
         with pytest.raises(RuntimeError, match="C interface version"):
@@ -190,3 +200,22 @@ def test_older_library_is_refused(monkeypatch, version):
     for name, fn in handle.entries.items():
         assert fn.argtypes == build.SIGNATURES[name]
         assert fn.restype is ctypes.c_int
+
+
+def test_chain_width_rule(monkeypatch):
+    """Every count from 1 to 2^17 gets a group width that divides 20 and
+    that the kernels take; a CPU device gets none, and the CPU path of
+    ``field.invert`` / ``pow2523`` never asks (it runs the twins)."""
+    dev = torch.device("cuda", 0)
+    assert all(20 % g == 0 for g in config.CHAIN_WIDTHS)
+    widths = {config.chain_lanes(dev, n) for n in range(1, (1 << 17) + 1)}
+    assert widths <= set(config.CHAIN_WIDTHS)
+    with pytest.raises(ValueError, match="no chain width"):
+        config.chain_lanes(torch.device("cpu"), 17)
+
+    def asked(*_):
+        raise AssertionError("config.chain_lanes asked on the CPU path")
+    monkeypatch.setattr(config, "chain_lanes", asked)
+    a = TF.from_ints([2, TF.P - 1])
+    assert torch.equal(TF.invert(a), TF.invert_plain(a))
+    assert torch.equal(TF.pow2523(a), TF.pow2523_plain(a))
