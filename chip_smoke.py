@@ -73,16 +73,21 @@ Phases, each raising on failure (so the exit code is nonzero):
      MSM_ACCUM_PLAN entry, 4096 (timed) last.  fe_mul, fe_sq, fe_add,
      ge_add and ge_double also get, beside the one-call time, the time a
      launch over a run of 100 launches (CUDA events / count) and the
-     profiler's device time of the kernel itself a launch.  ge_add and
-     ge_double (402 points) and fe_mul (272 elements), which read their
-     operands in place, also run on every layout the paths hand them
-     before the timed case: coordinate views of an add's [n, 80] output,
-     the [:n] / [n:] halves of 2n rows (curve.tree_reduce's), one point or
-     one element broadcast as [20] and as [1, 20] (ge_double: one point
-     alone, the Straus and Horner accumulators'), a [4, 5] batch and a
-     transposed batch (copied first); and beside their times, one
-     torch.add of two [n, 20] tensors timed the same way (a host floor,
-     not their function).
+     profiler's device time of the kernel itself a launch, and so does
+     ge_reduce, at 64, 147, 256, 512, 1000 and 4096 (timed) points (1, 1,
+     1, 2, 4 and 16 tiles: the counts msm_ints pads to among them) on
+     coordinate views, the identity, the base and the 8-torsion points
+     among the rows.  ge_add and ge_double (402 points) and fe_mul and
+     fe_sq (272 elements), which read their operands in place, also run on
+     every layout the paths hand them before the timed case: coordinate
+     views of an add's [n, 80] output, the [:n] / [n:] halves of 2n rows
+     (curve.tree_reduce's), one point or one element broadcast as [20] and
+     as [1, 20] (ge_double: one point alone, the Straus and Horner
+     accumulators'), a [4, 5] batch and a transposed batch (copied first);
+     fe_sq, which the paths hand contiguous rows only, on a coordinate
+     view and a [1, 20] row expanded to 272 (the stride it shares with
+     fe_mul); and beside their times, one torch.add of two [n, 20] tensors
+     timed the same way (a host floor, not their function).
   4. single verify, n = 64: native-library proofs are accepted, tampered
      ones rejected, every verdict equal to the native verifier's.
   5. merged batch verify, B = 16, n = 64 (the ladder MSM), and B = 128 and
@@ -132,8 +137,9 @@ Phases, each raising on failure (so the exit code is nonzero):
      variants), and ``bench_group4`` (ge_ladder_win and ge_ladder_bin at
      147, 402 and 1024 points, ge_bucket_accum at each plan entry,
      ge_seg_scan at [64 x 1024] and [32 x 1024], ge_bucket_fold at 8191
-     and 2047 rows in 128 and in MSM_FOLD_LANES_CUDA lanes, each with its
-     kernels' device time and equal to its twin); each must exit 0 and
+     and 2047 rows in 128 and in MSM_FOLD_LANES_CUDA lanes, ge_reduce at
+     256, 1024 and 4096 points, each with its kernels' device time and
+     equal to its twin); each must exit 0 and
      print its lines (echoed with the card's name) with every check
      passed: the split-half MSM identities at
      2^16 and 2^20, every proof accepted, the bench's MSMs exact, both
@@ -165,14 +171,16 @@ Phases, each raising on failure (so the exit code is nonzero):
  9b. with ``--against DIR`` (the root of another checkout, such as the
      parent commit unpacked with git archive): ``bench_calls --against
      DIR`` (ge_add and ge_double at 402 points, ge_double at one point,
-     fe_mul at 272 and 10,000 elements, fe_sq and fe_add: a call, a launch
-     over 100, device time, allocations a call, beside a torch.add floor;
-     the walls of the CLI's --benchmark, host prove, msm_auto 2^11 and
-     2^20 with the accumulator off, one fused verify and the fused prover
+     fe_mul at 272 and 10,000 elements, fe_sq at 272 contiguous, fe_add,
+     ge_reduce at 256, 1024 and 4096 points: a call, a launch over 100,
+     device time, allocations a call, beside a torch.add floor; the walls
+     of the CLI's --benchmark, host prove, msm_auto 2^10, 2^11 and 2^20
+     with the accumulator off, one fused verify and the fused prover
      under LADDER_WINDOW = 0) in turns (DIR, this, this, DIR), each turn a
      process at its checkout's root with its own wrappers and kernels:
      every output the same in every turn, and this checkout's ge_add,
-     ge_double and fe_mul one kernel and one allocation a call.
+     ge_double, fe_mul, fe_sq and ge_reduce one kernel and one allocation
+     a call.
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -254,7 +262,10 @@ PROVE_REPS = 2
 # table's 4096 (timed)
 POW2523_SHAPES = (17, 2176, 4352, 17408, 272)
 INVERT_SHAPES = (1, 272, 17408, 4096)
-REDUCE_SHAPES = (147, 256, 1000, 4096)
+# the tile reduction: 1 and 2 tiles at the counts msm_ints pads to (64,
+# 512), part of a tile (147), one tile, part of the fourth (1000), and the
+# kernel table's 4096 (timed)
+REDUCE_SHAPES = (64, 147, 256, 512, 1000, 4096)
 ACCUM_BASES = 4096
 # the accumulator's edge cases: at 1000 points (a multiple of no K) every
 # window width with mixed, all-zero and all -2^(w-1) digits, at threads 32
@@ -268,14 +279,15 @@ ACCUM_EDGE_SHAPES = {"mixed": (32, 3), "zero": (256, 1), "min": (256, 3)}
 # (by its __global__ name) a launch
 RUN_TIMED = {"fe_mul": "fe_mul_kernel", "fe_sq": "fe_sq_kernel",
              "fe_add": "fe_add3_kernel", "ge_add": "ge_add_kernel",
-             "ge_double": "ge_double_kernel"}
+             "ge_double": "ge_double_kernel",
+             "ge_reduce": "ge_reduce_kernel"}
 RUN_LAUNCHES = 100
 # the bytes a doubling must move: x, y, z read (it never reads t), a point
 # written
 DBL_BYTES = 3 * FE_BYTES + PT_BYTES
 # kernels that read their operands in place: their layouts are checked and
 # a torch.add floor is timed beside them
-IN_PLACE = ("ge_add", "ge_double", "fe_mul")
+IN_PLACE = ("ge_add", "ge_double", "fe_mul", "fe_sq")
 # kernels of several launches a call (a launch a cross-lane stage): the
 # time a call over a run of calls, and each kernel's device time a launch
 # and launches a call
@@ -584,11 +596,9 @@ def kernel_cases(rng, dev):
         rows = np.concatenate([rand_pts(n - len(edge_points())),
                                edge_points()])
         p = C.unflatten(t(rng.permutation(rows)))
-        tiles = -(-n // C.REDUCE_TILE)
         cases["ge_reduce"].append(
             (n, lambda p=p: cuda_curve.reduce_tiles(p),
-             lambda p=p: C.reduce_tiles_plain(p),
-             (n - tiles) * IMAD_ADD, (n + tiles) * PT_BYTES))
+             lambda p=p: C.reduce_tiles_plain(p), *G4.reduce_work(n)))
     def accum_case(label, n, dg, w, threads, slices):
         pre = t(rand_pts(n))
         cases["ge_bucket_accum"].append(
@@ -770,9 +780,9 @@ def kernel_cases(rng, dev):
 
 
 def in_place_cases(cases: dict, t, rand_fe, rand_pts) -> None:
-    """ge_add and ge_double at PT_SHAPES[-1] and fe_mul at FE_SHAPES[-1] on
-    the layouts their wrappers read in place (and a transposed batch,
-    copied first), before each one's timed case."""
+    """ge_add and ge_double at PT_SHAPES[-1] and fe_mul and fe_sq at
+    FE_SHAPES[-1] on the layouts their wrappers read in place (and a
+    transposed batch, copied first), before each one's timed case."""
     n, m = PT_SHAPES[-1], FE_SHAPES[-1]
     p, q = C.unflatten(t(rand_pts(n))), C.unflatten(t(rand_pts(n)))
     both = C.unflatten(t(rand_pts(2 * n)))
@@ -822,6 +832,16 @@ def in_place_cases(cases: dict, t, rand_fe, rand_pts) -> None:
                                     lambda a=a, b=b: cuda_field.mul(a, b),
                                     lambda a=a, b=b: F.mul_plain(a, b),
                                     k * IMAD_MUL, 3 * k * FE_BYTES))
+    # the squaring: the paths hand it contiguous rows only (the timed
+    # case); a coordinate view and a [1, 20] row expanded to m rows (stride
+    # 0) hold the row stride it shares with fe_mul
+    sqs = [(f"{m}, a coordinate view", pts.t[:m]),
+           (f"[1, 20] expanded to {m} rows", d2[None].expand(m, F.L))]
+    for label, a in sqs:
+        k = a.numel() // F.L
+        cases["fe_sq"].insert(-1, (label, lambda a=a: cuda_field.sq(a),
+                                   lambda a=a: F.sq_plain(a),
+                                   k * IMAD_SQ, 2 * k * FE_BYTES))
 
 
 def chain_imads(op: str, mp: int) -> int:
@@ -1610,7 +1630,8 @@ def check_group4_lines(lines) -> None:
             + [("ge_bucket_accum", n) for n in sorted(config.MSM_ACCUM_PLAN)]
             + [("ge_seg_scan", d * ln) for d, ln, _ in G4.SCAN_SHAPES]
             + [("ge_bucket_fold", m) for m in G4.FOLD_ROWS
-               for _ in range(fold_layouts)])
+               for _ in range(fold_layouts)]
+            + [("ge_reduce", n) for n in G4.REDUCE_SIZES])
     got = [(m.group(1), int(m.group(2))) for m in
            (re.match(r"(ge_\w+) n=(\d+) .*\[this\] [\d. ]+ ms.*bound", ln)
             for ln in lines) if m]
@@ -1618,24 +1639,29 @@ def check_group4_lines(lines) -> None:
         raise AssertionError(f"bench_group4 printed {got}, expected {want}")
 
 
-AB_LINE = (r"ab (ge_add|ge_double|fe_mul) .* \[this\] .*; kernels_a_call "
-           r"([\d. ]+); allocations ([\d. ]+)")
+# kernels that bench_calls --against holds to one launch and one allocation
+# a call: the in-place ones and the tile reduction (which has no torch.add
+# floor)
+ONE_CALL = IN_PLACE + ("ge_reduce",)
+AB_LINE = (rf"ab ({'|'.join(ONE_CALL)}) .* \[this\] .*; "
+           r"kernels_a_call ([\d. ]+); allocations ([\d. ]+)"
+           r"(?:; profile_runs [\d ]+)?")
 
 
 def check_ab_lines(lines) -> None:
     """bench_calls --against: four turns, every output the same, and this
-    checkout's ge_add, ge_double and fe_mul one kernel (the profiler may
-    miss a run's first launches: at most one) and one allocation a call."""
+    checkout's ONE_CALL kernels one kernel (the profiler may miss a run's
+    first launches: at most one) and one allocation a call."""
     if sum(ln.startswith("turn [") for ln in lines) != 4 or \
             lines[-1] != "ab: every output the same in every turn":
         raise AssertionError(f"bench_calls --against printed {lines[-8:]}")
     found = [m for m in (re.fullmatch(AB_LINE, ln) for ln in lines) if m]
-    if {m[1] for m in found} != set(IN_PLACE) or any(
+    if {m[1] for m in found} != set(ONE_CALL) or any(
             float(k) > 1 for m in found for k in m[2].split()) or any(
             float(a) != 1 for m in found for a in m[3].split()):
-        raise AssertionError("bench_calls --against: ge_add / ge_double / "
-                             "fe_mul not one kernel and one allocation a "
-                             f"call: {[m[0] for m in found]}")
+        raise AssertionError(f"bench_calls --against: {' / '.join(ONE_CALL)}"
+                             " not one kernel and one allocation a call: "
+                             f"{[m[0] for m in found]}")
 
 
 def run_ab(card: str, other: Path) -> None:

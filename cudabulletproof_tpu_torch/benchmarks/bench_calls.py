@@ -6,8 +6,11 @@ accumulators'), and ``fe_mul`` at 272 elements (the batch of 16's
 decompression) on contiguous rows and against a broadcast constant, and
 at 10,000 (the CLI's microbenchmark); each size beside one ``torch.add``
 of two ``[n, 20]`` tensors, a host floor measured the same way (it does
-not compute the field product).  Then two wrappers that share only the
-launch path with them: ``fe_sq`` [272] and ``fe_add`` [10,000]; and the
+not compute the field product); ``fe_sq`` at 272 on contiguous rows (the
+only layout the paths hand it); the tile reduction ``ge_reduce`` at 256,
+1024 and 4096 points on the coordinate views of an ``[n, 80]`` output (one
+tile, ``msm_auto``'s largest ladder route, the kernel table's).  Then a wrapper that shares
+only the launch path with them, ``fe_add`` [10,000]; and the
 binary ladder ``ge_ladder_bin`` at the verify path's 147 and 402 points
 and at 1024 (``bench_group4`` times it too, but loads another checkout's
 library into this one's wrappers, which a checkout of another C interface
@@ -17,8 +20,9 @@ point's ``to_bytes``) and at 4096, ``fe_pow2523`` at 17, 272 and 17,408
 (the decompression of one verify, of a merged batch of 16 and of 1024
 proofs).  Then the
 walls downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add``
-and 854 ``fe_mul`` launches), host prove at n = 64, ``msm_auto`` at 2^11
-(the Straus route over ``ge_add`` / ``ge_double``) and at 2^20 with
+and 854 ``fe_mul`` launches), host prove (and verify) at n = 64,
+``msm_auto`` at 2^10 (the ladder route: ``ge_ladder_win``, ``ge_reduce``
+on 4 tiles, 2 ``ge_add``) and 2^11 (the Straus route over ``ge_add`` / ``ge_double``) and at 2^20 with
 ``config.MSM_ACCUM_KERNEL`` off (the sort-plus-scan route, 4,160
 ``ge_double`` launches), one fused verify, and the fused prover at n = 64
 under ``config.LADDER_WINDOW`` = 0 (``ge_ladder_bin``) on fixed
@@ -71,13 +75,16 @@ RUN = 100                  # launches in a timed run
 PROFILE_TRIES = 3
 CALL_REPS = 7
 N_BITS = 64
+MSM_LADDER = 1 << 10
 MSM_STRAUS = 1 << 11
 MSM_SCAN = 1 << 20
 LADDER_BIN_SIZES = (147, 402, 1024)
+REDUCE_SIZES = (256, 1024, 4096)
 CHAIN_CASES = (("fe_invert", 1), ("fe_invert", 4096), ("fe_pow2523", 17),
                ("fe_pow2523", 272), ("fe_pow2523", 17 * 1024))
 # wall cases: label -> repetitions (median)
 WALL_REPS = {"cli.main(['--benchmark'])": 1, f"host prove n={N_BITS}": 5,
+             f"msm_auto n={MSM_LADDER}": 5,
              f"msm_auto n={MSM_STRAUS}": 3,
              f"msm_auto n={MSM_SCAN} accum off": 1,
              f"fused.verify n={N_BITS}": 3,
@@ -198,11 +205,17 @@ def kernel_cases(dev) -> list:
     cases += [("fe_mul [10000] contiguous", "fe_mul_kernel",
                lambda: cuda_field.mul(a4, b4), lambda: F.mul_plain(a4, b4)),
               floor(10_000)]
-    # wrappers that keep their packing and share only the launch path
-    cases += [("fe_sq [272] contiguous", "fe_sq_kernel",
-               lambda: cuda_field.sq(a), lambda: F.sq_plain(a)),
-              ("fe_add [10000] contiguous", "fe_add3_kernel",
-               lambda: cuda_field.add(a4, b4), lambda: F.add3_plain(a4, b4))]
+    cases.append(("fe_sq [272] contiguous", "fe_sq_kernel",
+                  lambda: cuda_field.sq(a), lambda: F.sq_plain(a)))
+    for n in REDUCE_SIZES:
+        pts = C.unflatten(rows(n, 4 * F.L))
+        cases.append((f"ge_reduce [{n}] coordinate views", "ge_reduce_kernel",
+                      lambda p=pts: cuda_curve.reduce_tiles(p),
+                      lambda p=pts: C.reduce_tiles_plain(p)))
+    # a wrapper that keeps its packing and shares only the launch path
+    cases.append(("fe_add [10000] contiguous", "fe_add3_kernel",
+                  lambda: cuda_field.add(a4, b4),
+                  lambda: F.add3_plain(a4, b4)))
     for name, n in CHAIN_CASES:
         x = rows(n, F.L)
         fn, plain = ((cuda_field.invert, F.invert_plain) if name == "fe_invert"
@@ -274,6 +287,7 @@ def measure_walls(dev) -> list:
     limbs[:, -1] >>= F.W - 5
     big_sc = torch.from_numpy(limbs).to(dev)
     proof = RP.prove((1 << N_BITS) - 1, 0x5EED, N_BITS, gens)
+    small = C.GE(*(c[:MSM_LADDER] for c in pts))
     # the fused prover's inputs: the value's bits, then the value, the
     # blinding and 4 + 2n nonces, fixed so that every turn writes one blob
     value = (1 << N_BITS) - 1
@@ -308,6 +322,8 @@ def measure_walls(dev) -> list:
     fns = {"cli.main(['--benchmark'])": bench,
            f"host prove n={N_BITS}": lambda: RP.verify(RP.prove(
                (1 << N_BITS) - 1, 0x5EED, N_BITS, gens), gens),
+           f"msm_auto n={MSM_LADDER}": lambda: C.to_bytes(M.msm_auto(
+               small, sc[:MSM_LADDER])),
            f"msm_auto n={MSM_STRAUS}": lambda: C.to_bytes(M.msm_auto(pts,
                                                                      sc)),
            f"msm_auto n={MSM_SCAN} accum off": accum_off,

@@ -6,8 +6,10 @@ sizes of ``config.MSM_ACCUM_PLAN`` (2^12 and 2^13, the merged batches of
 MSM's
 ``ge_seg_scan`` at [depth 64 x 1024 lanes] and [32 x 1024] (a window of
 2^16 points at w = 13, of the merged batch of 1024 proofs at w = 11) and
-``ge_bucket_fold`` at 8191 and 2047 rows (the same windows' tables), each
-with its device time a call by kernel name.
+``ge_bucket_fold`` at 8191 and 2047 rows (the same windows' tables), and
+the tile reduction ``ge_reduce`` at 256, 1024 and 4096 points (one tile,
+``msm_auto``'s largest ladder route, the kernel table's), each with its
+device time a call by kernel name.
 
     python -m cudabulletproof_tpu_torch.benchmarks.bench_group4 [--reps N]
     python -m cudabulletproof_tpu_torch.benchmarks.bench_group4 --against DIR
@@ -100,6 +102,9 @@ SWEEP_FOLD_LANES = (128, 256, 512, 1024, 2048, 4096)
 SWEEP_CHAIN_COUNTS = (1, 17, 272, 2176, 4352, 17408)
 # the chains' squarings before their 11 multiplies
 CHAIN_SQUARINGS = {"fe_invert": 254, "fe_pow2523": 251}
+# the tile reduction: one tile, msm_auto's largest ladder route (4 tiles),
+# the kernel table's 4096
+REDUCE_SIZES = (256, 1024, 4096)
 
 
 def ladder_work(n: int) -> tuple:
@@ -113,6 +118,14 @@ def ladder_bin_work(n: int) -> tuple:
     """(IMADs, bytes) of the binary ladder over n points: each point and
     scalar read once, each result written once."""
     return n * LADDER_BIN_ADD * IMAD_ADD, n * (2 * PT_BYTES + FE_BYTES)
+
+
+def reduce_work(n: int) -> tuple:
+    """(IMADs, bytes) of the tile sums of n points: n - tiles unified adds
+    (the identity padding adds nothing that the data needs), each point
+    read once and each partial written once."""
+    tiles = -(-n // C.REDUCE_TILE)
+    return (n - tiles) * IMAD_ADD, (n + tiles) * PT_BYTES
 
 
 def accum_work(dg: torch.Tensor, n: int, w: int) -> tuple:
@@ -316,6 +329,11 @@ def cases(dev):
         if config.MSM_FOLD_LANES_CUDA != JAX_FOLD_LANES:
             out.append(fold_case(body, config.MSM_FOLD_LANES_CUDA,
                                  JAX_FOLD_LANES))
+    for n in REDUCE_SIZES:
+        p = C.unflatten(rows(n))
+        out.append(Case("ge_reduce", n, fixed(
+            "", lambda p=p: cuda_curve.reduce_tiles(p),
+            lambda p=p: C.reduce_tiles_plain(p), *reduce_work(n))))
     return out
 
 

@@ -7,13 +7,12 @@
 //   ge_reduce_kernel      replaces pallas_curve.py::_reduce_kernel
 //
 // Layout: rows of 80 int32 (x|y|z|t, 20 limbs each), [n, 80] row-major,
-// except ge_add's and ge_double's operands (below).
+// except the operands of ge_add, ge_double and ge_reduce (below).
 //
 // What bounds them on Hopper: integer multiplies.  An add is 9 field
 // multiplies (~4,000 IMADs) against 960 bytes moved; the ladder is ~2,800
 // field-multiply equivalents per point against 400 bytes, so it is
-// compute-bound.  ge_reduce runs a point's whole operation in one thread
-// (fe25519.cuh's ge_padd); the other four run on the four-lane group law.
+// compute-bound.  All five run on the four-lane group law.
 //
 // The four-lane kernels: lane c of a point's four lanes holds coordinate c
 // and runs fe25519.cuh's ge4_padd / ge4_pdbl, chains 3 and 2 multiply
@@ -25,13 +24,14 @@
 //
 // The batched add and doubling (ge_add, ge_double) carry 2-26 us of device
 // work under a host call that cost 0.13-0.35 ms when the wrapper packed its
-// operands, so their operands are read in place: each coordinate (x, y, z,
-// t of p, then of q for the add) comes as a base pointer and a row stride
-// in int32 -- 80 for a coordinate view of an [n, 80] output, 20 for a
-// contiguous [n, 20], 0 for one point broadcast -- and lane c reads
-// coordinate c of row i at base[c] + i * stride[c] (the doubling's lane 3
-// reads nothing: t is not an input of the doubling).  The output is one
-// [n, 80] row-major tensor.
+// operands, so their operands are read in place, and so are the tile
+// reduction's: each coordinate (x, y, z, t of p, then of q for the add)
+// comes as a base pointer and a row stride in int32 -- 80 for a coordinate
+// view of an [n, 80] output, 20 for a contiguous [n, 20], 0 for one point
+// broadcast -- and lane c reads coordinate c of row i at base[c] + i *
+// stride[c] (the doubling's lane 3 reads nothing: t is not an input of the
+// doubling).  The output is one [n, 80] row-major tensor ([ceil(n / 256),
+// 80] for the reduction).
 //
 // The window ladder (w = 4 fixed window, the default of scalarmult_raw)
 // runs on the four-lane group law (fe25519.cuh's ge4_*): a point's four
@@ -73,17 +73,37 @@
 // accumulator and P stay in registers.
 //
 // The tile reduction (ge_reduce, the _reduce_kernel of tree_reduce and
-// pallas_curve.msm): one block of 128 threads sums a tile of 256 points to
-// one by log-depth halving in shared memory, lane i + half added into lane
-// i, the Pallas order (p = the low half, q = the high half).  The tile is
-// 256 x 320 B = 80 KB of dynamic shared memory; rows past n are the
-// identity, as the Pallas wrapper pads them.  255 unified adds (~1.0M
-// IMADs) against 80 KB read per tile: compute-bound, and at the MSM sizes
-// that use it (n <= 1024, 1 to 4 tiles) latency-bound on 8 halving rounds.
-// One partial per tile; the caller folds the partials with ge_add.
+// pallas_curve.msm) sums each tile of 256 points to one by 8 rounds of
+// halving, lane i + half added into lane i, the Pallas order (p = the low
+// half, q = the high half), so its limbs are the one-thread tree's; rows
+// past n are the identity, as the Pallas wrapper pads them.  255 unified
+// adds (~1.0M IMADs) against 80 KB read a tile, but at the sizes that use
+// it (msm_auto's ladder route: 64 to 1024 points, 1 to 4 tiles) the card
+// holds a handful of blocks, so what bounds it is the latency of the 8
+// rounds, each a dependent add.  A tile is 128 units of four lanes on a
+// cluster of two 256-thread blocks: unit u adds its points u and u + 128
+// (round 1, from device memory; ~0.5M IMADs, split over two SMs).  Then
+// in each round the units of the upper half write their sums into a tile
+// in block 0's shared memory and leave, and the lower half reads and adds
+// them: round 64's writers are all of block 1, through distributed shared
+// memory and one cluster barrier; rounds 32, 16 and 8 stay in block 0, one
+// named barrier a round over the warps still there.  The tile is
+// limb-major, [20 limbs][128 units x 4 lanes] (40 KB): a warp's access to a
+// limb is 32 consecutive words, free of bank conflicts, and no column is
+// written twice, so one barrier a round suffices.  Rounds 4, 2 and 1 are
+// warp 0's 8 points, by __shfl_down_sync of 4 half lanes: no shared memory,
+// no barrier.  Lanes 0-3 of unit 0 store the tile's partial; the caller
+// folds the partials with ge_add.  A round is one four-lane add, 3
+// multiply latencies deep where the one-thread tree's was 9.  One block of
+// 512 threads a tile was ~10% slower (round 1's 128 adds on one SM, and
+// 128 registers a thread, which spilled) (bench_group4 on an H100,
+// PERF.md).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fe25519.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -229,29 +249,82 @@ ge_ladder_bin_kernel(const int32_t* __restrict__ p,
 }
 
 constexpr int kReduceTile = 256;                 // pallas_field.LANES
-constexpr int kReduceThreads = kReduceTile / 2;
-constexpr int kReduceSmem = kReduceTile * static_cast<int>(sizeof(bp::ge));
+constexpr int kReduceUnits = kReduceTile / 2;    // round 1: points u, u + 128
+constexpr int kReduceBlocks = 2;                 // a cluster a tile
+constexpr int kReduceThreads = 4 * kReduceUnits / kReduceBlocks;
+constexpr int kReduceCols = 4 * kReduceUnits;    // a column a lane
 
-__global__ void __launch_bounds__(kReduceThreads)
-ge_reduce_kernel(const int32_t* __restrict__ p, int32_t* __restrict__ out,
-                 int64_t n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bp::ge* tile = reinterpret_cast<bp::ge*>(smem);
-  const int64_t base = blockIdx.x * static_cast<int64_t>(kReduceTile);
-  for (int j = threadIdx.x; j < kReduceTile; j += blockDim.x) {
-    const int64_t i = base + j;
-    tile[j] = i < n ? bp::ge_load(p + i * 4 * bp::FE_L) : bp::ge_identity();
-  }
-  __syncthreads();
+// Named barrier 1 over the first `threads` threads of the block (the warps
+// still in the reduction).
+__device__ __forceinline__ void reduce_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// This lane's sum into column `col` of the tile `tile` points into.
+__device__ __forceinline__ void tile_put(int32_t* tile, int col,
+                                         const bp::fe& a) {
+#pragma unroll
+  for (int k = 0; k < bp::FE_L; ++k) tile[k * kReduceCols + col] = a.v[k];
+}
+
+__device__ __forceinline__ bp::fe tile_get(const int32_t* tile, int col) {
+  bp::fe r;
+#pragma unroll
+  for (int k = 0; k < bp::FE_L; ++k) r.v[k] = tile[k * kReduceCols + col];
+  return r;
+}
+
+// A tile of 256 points on a cluster of two blocks: unit u (block u / 64)
+// adds its points u and u + 128, then the tree of halvings.  One call site
+// of ge4_padd serves all 8 rounds (one inlined copy of its three field
+// products' code, not one a round).
+__global__ void __cluster_dims__(kReduceBlocks, 1, 1)
+__launch_bounds__(kReduceThreads)
+ge_reduce_kernel(const ge_rows p, int32_t* __restrict__ out, int64_t n) {
+  // limb k of lane l (unit l / 4, coordinate l % 4) at [k][l]
+  __shared__ int32_t tile[bp::FE_L][kReduceCols];
+  cg::cluster_group cluster = cg::this_cluster();
+  // every block of the cluster has started before one writes another's
+  // tile: arrive now, wait before the round that crosses
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+  const bp::lane4 g = bp::lane4_here();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int unit = rank * (kReduceUnits / kReduceBlocks) +
+                   static_cast<int>(threadIdx.x) / 4;
+  const int lane = 4 * unit + g.c;
+  const int64_t t = blockIdx.x / kReduceBlocks;
+  const int64_t i = t * kReduceTile + unit;
+  bp::fe acc = i < n ? ge_rows_load(p, g.c, i) : bp::ge4_identity(g);
+  bp::fe q = i + kReduceUnits < n ? ge_rows_load(p, g.c, i + kReduceUnits)
+                                  : bp::ge4_identity(g);
+  int32_t* own = &tile[0][0];
+  // round `half`: unit u < half adds unit u + half's sum q into its own
 #pragma unroll 1
-  for (int half = kReduceTile / 2; half > 0; half >>= 1) {
-    // lane i reads lanes i and i + half and writes lane i: no other lane
-    // of this round touches either, so one barrier per round suffices
-    if (threadIdx.x < half)
-      tile[threadIdx.x] = bp::ge_padd(tile[threadIdx.x], tile[threadIdx.x + half]);
-    __syncthreads();
+  for (int half = kReduceUnits;; half >>= 1) {
+    acc = bp::ge4_padd(g, acc, q);
+    if (half == 1) break;
+    const int next = half / 2;
+    if (next < kWarpPoints) {
+      // warp 0's 8 points: unit u + next's lanes lie 4 next above
+#pragma unroll
+      for (int k = 0; k < bp::FE_L; ++k)
+        q.v[k] = __shfl_down_sync(bp::kFullWarp, acc.v[k], 4 * next);
+      continue;
+    }
+    // units next .. half - 1 hand their sums down and leave: each column
+    // is written once and read once in the whole reduction
+    if (next == kReduceUnits / kReduceBlocks) {    // block 1's units
+      asm volatile("barrier.cluster.wait;" ::: "memory");
+      if (unit >= next) tile_put(cluster.map_shared_rank(own, 0), lane, acc);
+      cluster.sync();
+    } else {
+      if (unit >= next) tile_put(own, lane, acc);
+      reduce_sync(4 * half);          // units 0 .. half - 1, 4 lanes each
+    }
+    if (unit >= next) return;
+    q = tile_get(own, lane + 4 * next);
   }
-  if (threadIdx.x == 0) bp::ge_store(out + blockIdx.x * 4 * bp::FE_L, tile[0]);
+  if (unit == 0) bp::fe_store(out + t * 4 * bp::FE_L + g.c * bp::FE_L, acc);
 }
 
 unsigned int blocks_for(int64_t n, int threads) {
@@ -263,7 +336,7 @@ unsigned int blocks_for(int64_t n, int threads) {
 // The version of the library's C interface (utils/build.py's ABI): raised
 // whenever an entry's arguments change, so that a library built from
 // other sources is refused rather than called with the wrong arguments.
-extern "C" int bp_abi_version() { return 4; }
+extern "C" int bp_abi_version() { return 5; }
 
 // p, q: coordinates x, y, z, t, each a base pointer and a row stride in
 // int32 (0 = one point broadcast); out [n, 80].
@@ -312,15 +385,17 @@ extern "C" int bp_ge_ladder_bin(const int32_t* p, const int32_t* s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// p [n, 80] -> out [ceil(n / 256), 80], one partial sum per tile.
-extern "C" int bp_ge_reduce(const int32_t* p, int32_t* out, int64_t n,
-                            void* stream) {
+// p: coordinates x, y, z, t, each a base pointer and a row stride in int32
+// (0 = one point broadcast); out [ceil(n / 256), 80], one partial sum per
+// tile.
+extern "C" int bp_ge_reduce(const int32_t* px, const int32_t* py,
+                            const int32_t* pz, const int32_t* pt, int64_t spx,
+                            int64_t spy, int64_t spz, int64_t spt,
+                            int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      ge_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kReduceSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ge_reduce_kernel<<<blocks_for(n, kReduceTile), kReduceThreads, kReduceSmem,
-                     static_cast<cudaStream_t>(stream)>>>(p, out, n);
+  const ge_rows p{{px, py, pz, pt}, {spx, spy, spz, spt}};
+  ge_reduce_kernel<<<kReduceBlocks * blocks_for(n, kReduceTile),
+                     kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, out, n);
   return static_cast<int>(cudaGetLastError());
 }

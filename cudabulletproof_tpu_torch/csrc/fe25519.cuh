@@ -31,10 +31,12 @@
 // the Pallas kernels' op order; three passes suffice (the JAX package's
 // tests/test_bounds.py proves the count).
 //
-// The point routines are __noinline__: the ladder calls them ~300 times per
-// point, and inlining 9 (or 8) unrolled field multiplies at every call site
-// would make the kernels large and slow to compile for no gain in a
-// compute-bound loop.
+// The one-thread point routines (ge_padd, ge_madd) are __noinline__: only
+// the diagnostic kernels (micro_kernels.cu, micro_window_kernels.cu) call
+// them, from loops, and inlining 9 (or 7) unrolled field multiplies at every
+// call site would make those kernels large and slow to compile for no gain
+// in a compute-bound loop.  Every program kernel runs the four-lane
+// routines below.
 #pragma once
 
 #include <cstdint>
@@ -211,7 +213,7 @@ static __device__ __noinline__ ge ge_madd(const ge& p, const fe& ypx2,
 
 // ---------------------------------------------------------------------------
 // The four-lane group law (ge_add, ge_double, ge_ladder_win, ge_ladder_bin,
-// ge_bucket_accum, ge_seg_scan, ge_bucket_fold).
+// ge_reduce, ge_bucket_accum, ge_seg_scan, ge_bucket_fold).
 //
 // A point occupies four consecutive lanes of a warp: lane c (0..3) of the
 // group holds coordinate c (x, y, z, t), 20 limbs in registers.  Each
@@ -239,8 +241,9 @@ static __device__ __noinline__ ge ge_madd(const ge& p, const fe& ypx2,
 // whole add of each of 32, so a point's chain is 3-4 times shorter while
 // the card runs 4 times as many warps for the same points: the gain is
 // latency where the kernels fill few schedulers (the ladder's 147-1024
-// points, the combine's Horner chain), at the price of the adds that every
-// lane of a group repeats and 120-160 shuffles a point operation.
+// points, the combine's Horner chain, the tile reduction's halving rounds),
+// at the price of the adds that every lane of a group repeats and 120-160
+// shuffles a point operation.
 //
 // These are __forceinline__: each takes and returns one coordinate (80 B),
 // where the one-thread routines above pass 320-byte points by reference.

@@ -18,10 +18,11 @@
 // functions hold them (the Pallas kernels transposed to [20, n] tiles to put
 // the batch on the TPU's lanes).  A warp's loads are therefore strided by
 // 80 bytes; a [20, n] layout is left for a later change, since these
-// kernels are compute-bound (see fe25519.cuh).  fe_mul reads its operands
-// in place: each a base pointer and a row stride in int32 (20 for a
-// contiguous [n, 20], 80 for a coordinate of an [n, 80] point row, 0 for
-// one element broadcast), so a call allocates only its output.  Its
+// kernels are compute-bound (see fe25519.cuh).  fe_mul and fe_sq read their
+// operands in place: each a base pointer and a row stride in int32 (20 for
+// a contiguous [n, 20], 80 for a coordinate of an [n, 80] point row, 0 for
+// one element broadcast), so a call allocates only its output (the paths
+// hand fe_sq contiguous rows only; it shares fe_mul's operand plan).  Their
 // blocks are one warp: the paths' 17 to 272 elements spread over 1 to 9
 // SMs, one warp a scheduler, as 128-thread blocks spread them over 1 to 3.
 //
@@ -109,11 +110,13 @@ fe_mul_kernel(const int32_t* __restrict__ a, int64_t sa,
                bp::fe_mul(bp::fe_load(a + i * sa), bp::fe_load(b + i * sb)));
 }
 
-__global__ void fe_sq_kernel(const int32_t* __restrict__ a,
-                             int32_t* __restrict__ out, int64_t n) {
+// a rows at stride sa (int32; 0 = one element broadcast).
+__global__ void __launch_bounds__(kMulThreads)
+fe_sq_kernel(const int32_t* __restrict__ a, int64_t sa,
+             int32_t* __restrict__ out, int64_t n) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  bp::fe_store(out + i * bp::FE_L, bp::fe_sq(bp::fe_load(a + i * bp::FE_L)));
+  bp::fe_store(out + i * bp::FE_L, bp::fe_sq(bp::fe_load(a + i * sa)));
 }
 
 // The Fermat chains: one-warp blocks of 32 / G elements, each on a group of
@@ -298,11 +301,12 @@ extern "C" int bp_fe_mul(const int32_t* a, int64_t sa, const int32_t* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bp_fe_sq(const int32_t* a, int32_t* out, int64_t n,
+// a: base pointer and row stride in int32 (0 = broadcast); out [n, 20].
+extern "C" int bp_fe_sq(const int32_t* a, int64_t sa, int32_t* out, int64_t n,
                         void* stream) {
   if (n <= 0) return 0;
-  fe_sq_kernel<<<blocks_for(n), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a, out, n);
+  fe_sq_kernel<<<blocks_for(n, kMulThreads), kMulThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(a, sa, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

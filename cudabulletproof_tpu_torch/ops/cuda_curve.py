@@ -12,19 +12,19 @@
     ge_bucket_fold <- pallas_curve.py::_bucket_fold_kernel (scan_kernels.cu;
                       two kernels: the per-lane prefixes and the finish)
 
-``add`` and ``double`` read their points in place: each coordinate
-passes as its data pointer and row stride (``cuda_field.operand``: 80 for
-a coordinate view of an earlier kernel's ``[n, 80]`` output, 20 for a
-contiguous ``[n, 20]``, 0 for one point broadcast), so on those layouts a
-call is one ``torch.empty`` and one launch, and the result is the (x, y,
-z, t) views of that output.  The ladders and ``reduce_tiles`` broadcast
-the batch dims of their CUDA int32 operands and pack a ``GE`` into
-contiguous ``[n, 80]`` rows (x|y|z|t) first; the bucket kernels make
-their tables contiguous.  Every launch is on PyTorch's current stream into
-outputs made with ``torch.empty``.  Each wrapper raises on anything the
-kernel does not take; there is no fallback.  The plain twins live in
-``ops/curve.py`` (``add_plain``, ``double_plain``, ``scalarmult_plain``,
-``scalarmult_bin_plain``, ``reduce_tiles_plain``) and
+``add``, ``double`` and ``reduce_tiles`` read their points in place: each
+coordinate passes as its data pointer and row stride
+(``cuda_field.operand``: 80 for a coordinate view of an earlier kernel's
+``[n, 80]`` output, 20 for a contiguous ``[n, 20]``, 0 for one point
+broadcast), so on those layouts a call is one ``torch.empty`` and one
+launch; the result of ``add`` and ``double`` is the (x, y, z, t) views of
+that output.  The ladders broadcast the batch dims of their CUDA int32
+operands and pack a ``GE`` into contiguous ``[n, 80]`` rows (x|y|z|t)
+first; the bucket kernels make their tables contiguous.  Every launch is on
+PyTorch's current stream into outputs made with ``torch.empty``.  Each
+wrapper raises on anything the kernel does not take; there is no fallback.
+The plain twins live in ``ops/curve.py`` (``add_plain``, ``double_plain``,
+``scalarmult_plain``, ``scalarmult_bin_plain``, ``reduce_tiles_plain``) and
 ``ops/pippenger.py`` (``bucket_accum_plain``, ``seg_scan_plain``,
 ``bucket_fold_plain``).
 
@@ -112,16 +112,17 @@ def ladder_bin(p, s: torch.Tensor):
 
 def reduce_tiles(p):
     """GE [n] -> [ceil(n / 256), 80] rows: one partial sum per tile of 256
-    points (identity-padded), by the ge_reduce kernel."""
-    batch, flats = flat_operands(L, *p)
-    rows = torch.cat(flats, dim=1)
+    points (identity-padded), by the ge_reduce kernel, the 4 coordinates
+    read in place."""
+    dev, batch = check_operands(L, p)
     if len(batch) != 1:
         raise ValueError(f"reduce_tiles takes GE [n], got batch {tuple(batch)}")
-    n = rows.shape[0]
+    args, _keep = point_args((p,), batch)
+    n = batch[0]
     out = torch.empty((-(-n // REDUCE_TILE), 4 * L), dtype=torch.int32,
-                      device=rows.device)
+                      device=dev)
     if n:
-        build.launch("bp_ge_reduce", out.device, rows, out, n)
+        build.launch("bp_ge_reduce", dev, *args, out.data_ptr(), n)
         launches["ge_reduce"] += 1
     return out
 

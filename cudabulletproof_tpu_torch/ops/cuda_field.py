@@ -14,20 +14,20 @@
 Each wrapper takes CUDA int32 tensors of 20-limb field elements whose batch
 dims broadcast, expands them to one shape, makes them contiguous and flat
 ``[n, 20]``, launches on PyTorch's current stream into an output made with
-``torch.empty``, and restores the batch shape.  ``mul`` (and
-``cuda_curve.add``) read their operands in place instead: each operand
-passes as its data pointer and one row stride (``operand``), so that on the
-paths' layouts -- contiguous rows, coordinate views of a point row, slices
-of them, a broadcast row -- a call allocates only its output and launches
-once; an operand whose batch dims do not flatten to one stride is copied
-first.  ``pow2523`` and ``invert`` also pass the width G of the lane
-groups that run each element's Fermat chain (``config.chain_lanes`` for
-the count unless the caller names one).  ``inner_product_partial``
-takes ``[B, n, 20]`` operands and returns the kernels' ``[B, 39, 256]``
-partial sums (zeroed with ``torch.zeros`` before the launch), which
-``field.ip_combine`` turns into limbs.  It raises on anything the
-kernel does not take; there is no fallback.  The plain twins live in
-``ops/field.py`` (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
+``torch.empty``, and restores the batch shape.  ``mul`` and ``sq`` (and
+``cuda_curve``'s ``add``, ``double`` and ``reduce_tiles``) read their
+operands in place instead: each operand passes as its data pointer and one
+row stride (``operand``), so that on the paths' layouts -- contiguous rows,
+coordinate views of a point row, slices of them, a broadcast row -- a call
+allocates only its output and launches once; an operand whose batch dims do
+not flatten to one stride is copied first.  ``pow2523`` and ``invert`` also
+pass the width G of the lane groups that run each element's Fermat chain
+(``config.chain_lanes`` for the count unless the caller names one).
+``inner_product_partial`` takes ``[B, n, 20]`` operands and returns the
+kernels' ``[B, 39, 256]`` partial sums (zeroed with ``torch.zeros`` before
+the launch), which ``field.ip_combine`` turns into limbs.  It raises on
+anything the kernel does not take; there is no fallback.  The plain twins
+live in ``ops/field.py`` (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
 ``invert_plain``, ``add3_plain``, ``sub3_plain``, ``ip_partial_plain``,
 ``mul_chain_plain``).
 
@@ -141,23 +141,29 @@ def _run(name: str, *ts: torch.Tensor, extra=()) -> torch.Tensor:
     return launch_rows(launches, name, L, *ts, extra=extra)
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b mod p; both read in place (``operand``), one allocation (the
-    output) and one launch."""
-    dev, batch = check_operands(L, (a, b))
-    a, sa = operand(a, batch, L)
-    b, sb = operand(b, batch, L)
+def _in_place(name: str, *ts: torch.Tensor) -> torch.Tensor:
+    """One launch of ``bp_<name>(a, row stride of a, ..., out, n, stream)``
+    on the operands read in place (``operand``): one allocation, the
+    output in their broadcast batch shape."""
+    dev, batch = check_operands(L, ts)
+    planned = [operand(t, batch, L) for t in ts]
     out = torch.empty((*batch, L), dtype=torch.int32, device=dev)
     n = math.prod(batch)
     if n:
-        build.launch("bp_fe_mul", dev, a.data_ptr(), sa, b.data_ptr(), sb,
-                     out.data_ptr(), n)
-        launches["fe_mul"] += 1
+        args = [x for t, s in planned for x in (t.data_ptr(), s)]
+        build.launch(f"bp_{name}", dev, *args, out.data_ptr(), n)
+        launches[name] += 1
     return out
 
 
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod p; both read in place."""
+    return _in_place("fe_mul", a, b)
+
+
 def sq(a: torch.Tensor) -> torch.Tensor:
-    return _run("fe_sq", a)
+    """a^2 mod p; read in place."""
+    return _in_place("fe_sq", a)
 
 
 def _chain(name: str, a: torch.Tensor, lanes=None) -> torch.Tensor:

@@ -189,6 +189,8 @@ def test_dispatch_refuses_non_cuda(pts):
         cuda_curve.double(p)
     with pytest.raises(ValueError):
         cuda_curve.ladder(p, TF.from_ints([1, 2]))
+    with pytest.raises(ValueError):
+        cuda_curve.reduce_tiles(p)
 
 
 @pytest.mark.slow

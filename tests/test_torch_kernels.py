@@ -382,7 +382,10 @@ def test_ladder_bin_kernel_equals_twin(dev, n):
                        TC.flatten(TC.scalarmult_bin_plain(flipped, s)))
 
 
-@pytest.mark.parametrize("n", [147, 1000])
+# the tile reduction's counts: msm_ints pads to a power of two >= 64, so
+# 64 .. 1024 points (1 to 4 tiles of 256), and part of a tile (147) and of
+# the fourth (1000)
+@pytest.mark.parametrize("n", [64, 147, 256, 512, 1000, 1024])
 def test_reduce_kernel_equals_twin(dev, n):
     """Weak-limb rows with the identity and the 8-torsion points among
     them; the tile sums limb for limb, and a real sum against the oracle."""
@@ -398,6 +401,76 @@ def test_reduce_kernel_equals_twin(dev, n):
         want = want + q
     got = TC.tree_reduce_tiles(TC.from_oracle(pts, dev))
     assert TC.to_oracle(got) == [want]
+
+
+@pytest.mark.parametrize("layout", ["coordinate views", "contiguous",
+                                    "a ladder's output"])
+def test_reduce_kernel_in_place(dev, layout):
+    """ge_reduce reads x, y, z, t in place: on coordinate views of an
+    [n, 80] output, contiguous [n, 20] coordinates and the window ladder's
+    output (msm_auto's route) it equals the twin limb for limb, with one
+    allocation (the partials) and one launch a call."""
+    rng = np.random.default_rng(21)
+    n = 700
+    p = TC.unflatten(_rand(rng, (n, 80), dev))
+    if layout == "contiguous":
+        p = TC.GE(*(c.contiguous() for c in p))
+    elif layout == "a ladder's output":
+        p, _ = _ladder_operands(rng, n, dev)
+        p = TC.GE(*cuda_curve.ladder(p, TF.from_ints(list(range(n)), dev)))
+    assert torch.equal(cuda_curve.reduce_tiles(p), TC.reduce_tiles_plain(p))
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    launched = cuda_curve.launches["ge_reduce"]
+    out = cuda_curve.reduce_tiles(p)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        - allocated == 1
+    assert cuda_curve.launches["ge_reduce"] == launched + 1
+    assert out.shape == (3, 80)
+
+
+# fe_sq's operand layouts.  The paths hand it contiguous rows only; the
+# others hold the row stride it shares with fe_mul: a coordinate view of an
+# [n, 80] row and its high half, a [1, 20] row expanded to n (stride 0),
+# and, at no n of their own, one element alone, a [4, 5] batch and a
+# transposed one (copied)
+SQ_LAYOUTS = [(layout, n) for layout in ["contiguous", "coordinate view",
+                                         "high half", "row [1, 20] expanded"]
+              for n in [1, 31, 32, 33, 272]] + [
+    ("one element", 20), ("[4, 5] batch", 20), ("transposed batch", 20)]
+
+
+@pytest.mark.parametrize("layout,n", SQ_LAYOUTS)
+def test_sq_kernel_in_place(dev, layout, n):
+    """fe_sq on every layout equals sq_plain limb for limb, with the edge
+    rows at the start of the coordinate rows each layout reads, in the
+    operand's batch shape; but for the transposed batch, a call is one
+    allocation and one launch."""
+    rng = np.random.default_rng(n)
+    rows = _rand(rng, (2 * max(n, 20), 80), dev)
+    k = min(n, len(ADD_EDGES))
+    edges = torch.tensor(ADD_EDGES[:k], dtype=torch.int32, device=dev)
+    rows[:k, 40:60] = edges
+    rows[n:n + k, 40:60] = edges
+    pts = TC.unflatten(rows)
+    grid = pts.z[:20].reshape(4, 5, 20)
+    a = {"contiguous": pts.z[:n].contiguous(), "coordinate view": pts.z[:n],
+         "high half": pts.z[n:2 * n], "one element": pts.z[0],
+         "row [1, 20] expanded": pts.z[:1].expand(n, 20),
+         "[4, 5] batch": grid,
+         "transposed batch": grid.transpose(0, 1)}[layout]
+    got = cuda_field.sq(a)
+    assert got.shape == a.shape
+    assert torch.equal(got, TF.sq_plain(a))
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    launched = cuda_field.launches["fe_sq"]
+    out = cuda_field.sq(a)
+    assert cuda_field.launches["fe_sq"] == launched + 1
+    if layout != "transposed batch":
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+            - allocated == 1
+    del out
 
 
 # (w, digits, n) of the accumulator's cases: every window width at 1000

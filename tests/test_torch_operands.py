@@ -1,7 +1,7 @@
 """The operand plan of the in-place kernel wrappers (CPU, no JAX).
 
-``cuda_curve.add``, ``cuda_curve.double`` and ``cuda_field.mul`` pass each
-operand to their kernel
+``cuda_curve.add``, ``cuda_curve.double``, ``cuda_curve.reduce_tiles``,
+``cuda_field.mul`` and ``cuda_field.sq`` pass each operand to their kernel
 as a data pointer and one row stride (``cuda_field.operand``), and copy an
 operand only where its batch dims do not flatten to one stride.  The plan
 is a function of tensor metadata, so it runs here on CPU tensors: which
@@ -43,6 +43,8 @@ def _read(t: torch.Tensor, step: int, n: int) -> torch.Tensor:
 # ge_double's operand at the batches it is called with: one point (the
 # Straus and Horner accumulators'), [1] and a [2, 3] batch
 DOUBLE_BATCHES = ((), (1,), (2, 3))
+# ge_reduce's: GE [n] (the ladder's output, the tiles' partials)
+REDUCE_BATCH = (9,)
 
 
 def _point_layouts(batch) -> dict:
@@ -87,7 +89,21 @@ def _layouts():
         "transposed batch": (flat.transpose(0, 1), (5, 4), None),
         "limbs not at stride 1": (_rows(L, 9).T, (9,), None),
         **_double_layouts(),
+        **{f"sq {k}": (t, t.shape[:-1], step)
+           for k, (t, step) in _sq_layouts().items()},
     }
+
+
+def _sq_layouts() -> dict:
+    """layout -> (fe_sq's operand, its expected row stride) on the layouts
+    the paths pass: contiguous rows, a coordinate view of an [n, 80] row
+    (the high half too), one element alone and a [1, 20] row expanded."""
+    pts = TC.unflatten(_rows(18, 4 * L))
+    return {"contiguous [9, 20]": (_rows(9, L), L),
+            "coordinate view": (pts.z, 4 * L),
+            "high half of a coordinate view": (pts.x[9:], 4 * L),
+            "one element [20]": (_rows(L), 0),
+            "row [1, 20] expanded to 9": (_rows(1, L).expand(9, L), 0)}
 
 
 @pytest.mark.parametrize("label", list(_layouts()))
@@ -143,6 +159,15 @@ def test_c_entries_take_the_bound_arguments():
         "const int32_t* px", "const int32_t* py", "const int32_t* pz",
         "const int32_t* pt", "int64_t spx", "int64_t spy", "int64_t spz",
         "int64_t spt", "int32_t* out", "int64_t n", "void* stream"]
+    # fe_sq reads its operand in place, as fe_mul does
+    assert _c_params(src, "bp_fe_sq") == [
+        "const int32_t* a", "int64_t sa", "int32_t* out", "int64_t n",
+        "void* stream"]
+    # ge_reduce reads its points in place, as ge_double does
+    assert _c_params(src, "bp_ge_reduce") == [
+        "const int32_t* px", "const int32_t* py", "const int32_t* pz",
+        "const int32_t* pt", "int64_t spx", "int64_t spy", "int64_t spz",
+        "int64_t spt", "int32_t* out", "int64_t n", "void* stream"]
     # the Fermat chains take the width of their lane groups
     for name in ("bp_fe_invert", "bp_fe_pow2523"):
         assert _c_params(src, name) == [
@@ -150,14 +175,15 @@ def test_c_entries_take_the_bound_arguments():
             "void* stream"]
 
 
-@pytest.mark.parametrize("batch", DOUBLE_BATCHES)
+@pytest.mark.parametrize("batch", [*DOUBLE_BATCHES, REDUCE_BATCH])
 @pytest.mark.parametrize("layout", ["coordinate views", "contiguous",
                                     "one point broadcast"])
 def test_point_arguments(layout, batch):
     """``cuda_curve.point_args`` passes each point as its x, y, z, t data
-    pointers, then their row strides, the order of bp_ge_add / bp_ge_double;
-    read back from (pointer, stride), coordinate c of row i is row i of the
-    broadcast coordinate c, for p alone and for (p, q)."""
+    pointers, then their row strides, the order of bp_ge_add /
+    bp_ge_double / bp_ge_reduce; read back from (pointer, stride),
+    coordinate c of row i is row i of the broadcast coordinate c, for p
+    alone and for (p, q)."""
     p, _ = _point_layouts(batch)[layout]
     q = TC.unflatten(_rows(*batch, 4 * L) + 7)
     n = math.prod(batch)
@@ -172,6 +198,66 @@ def test_point_arguments(layout, batch):
                 assert torch.equal(_read(by_ptr[ptr], step, n), want)
 
 
+def _launched(monkeypatch, fn) -> tuple:
+    """(output, (C entry, arguments) of its one launch) of `fn` run on CPU
+    tensors, the CUDA-only check replaced by the batch it computes
+    (metadata only: no kernel runs)."""
+    def on_cpu(width, ts):
+        assert all(t.shape[-1] == width for t in ts)
+        return torch.device("cpu"), torch.broadcast_shapes(
+            *(t.shape[:-1] for t in ts))
+    calls = []
+    monkeypatch.setattr(cuda_field, "check_operands", on_cpu)
+    monkeypatch.setattr(cuda_curve, "check_operands", on_cpu)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, dev, *args: calls.append((name, args)))
+    out = fn()
+    assert len(calls) == 1
+    return out, calls[0]
+
+
+@pytest.mark.parametrize("layout", list(_sq_layouts()))
+def test_sq_arguments(monkeypatch, layout):
+    """``cuda_field.sq`` launches ``bp_fe_sq(a, row stride, out, n)`` on its
+    operand in place: read back from (pointer, stride), row i is row i of
+    the operand; out is [*batch, 20]; one launch, counted."""
+    a, step = _sq_layouts()[layout]
+    before = cuda_field.launches["fe_sq"]
+    out, (name, args) = _launched(monkeypatch, lambda: cuda_field.sq(a))
+    n = math.prod(a.shape[:-1])
+    assert name == "bp_fe_sq" and len(args) == 4
+    assert args[0] == a.data_ptr() and args[1] == step
+    assert args[2] == out.data_ptr() and args[3] == n
+    assert out.shape == a.shape and out.dtype == torch.int32
+    assert torch.equal(_read(a, step, n), a.reshape(n, L))
+    assert cuda_field.launches["fe_sq"] == before + 1
+
+
+@pytest.mark.parametrize("layout", ["coordinate views", "contiguous",
+                                    "one point broadcast"])
+def test_reduce_arguments(monkeypatch, layout):
+    """``cuda_curve.reduce_tiles`` launches ``bp_ge_reduce(x, y, z, t, their
+    row strides, out, n)`` on GE [n] read in place (one point broadcast
+    against n rows of another coordinate); out is one [80] row a tile of
+    256; one launch, counted."""
+    n = 300
+    p, step = _point_layouts((n,))[layout]
+    if layout == "one point broadcast":          # x at [n, 20], the rest one
+        p = TC.GE(_rows(n, L), *p[1:])
+    before = cuda_curve.launches["ge_reduce"]
+    out, (name, args) = _launched(monkeypatch,
+                                  lambda: cuda_curve.reduce_tiles(p))
+    assert name == "bp_ge_reduce" and len(args) == 10
+    assert args[8] == out.data_ptr() and args[9] == n
+    assert out.shape == (2, 4 * L) and out.dtype == torch.int32
+    by_ptr = {c.data_ptr(): c for c in p}
+    for c, ptr, s in zip(p, args[:4], args[4:8]):
+        assert torch.equal(_read(by_ptr[ptr], s, n), c.expand(n, L))
+    assert args[5:8] == (step,) * 3 and args[4] == (
+        L if layout == "one point broadcast" else step)
+    assert cuda_curve.launches["ge_reduce"] == before + 1
+
+
 class _Library:
     """Stands for a built kernel library of C interface `version` (None:
     one from before ``bp_abi_version``): every entry, none of them run."""
@@ -183,13 +269,14 @@ class _Library:
             setattr(self, name, types.SimpleNamespace())
 
 
-@pytest.mark.parametrize("version", [None, 2, 3, build.ABI, build.ABI + 1])
+@pytest.mark.parametrize("version", [None, 2, 3, 4, build.ABI, build.ABI + 1])
 def test_older_library_is_refused(monkeypatch, version):
     """``build.load`` binds every entry of a library of this checkout's C
     interface, with the argument types of SIGNATURES, and refuses a library
     of any other (an older ge_double entry took one packed point, older
-    fe_invert / fe_pow2523 entries no group width)."""
-    assert build.ABI == 4
+    fe_invert / fe_pow2523 entries no group width, older fe_sq / ge_reduce
+    entries packed rows)."""
+    assert build.ABI == 5
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: _Library(version))
     if version != build.ABI:
         with pytest.raises(RuntimeError, match="C interface version"):
