@@ -32,13 +32,15 @@ Phases, each raising on failure (so the exit code is nonzero):
      stage); sort_hist / sort_rank at 2^16 keys with radix 64 and 128
      (the 6 + 7 bit passes of w = 13), random, all equal and two values.
      fe_inner_product at 1, 255, 256, 257, 10,000, 33,068 (tiles share
-     the partial's columns from 32,768 on), 2^17 (the bound) and 2^16
-     (the bench's, timed), fe_inner_product_batched at B = 1, 3,
-     16 with n = 300 and 4096: the partial sums (the wrappers, timed
-     against ip_partial_plain) and the public functions' limbs after the
-     combine, on random weak limbs with the edge rows among them; their
-     bound is 160 bytes an element over the HBM rate (400 IMADs an element
-     is less).  Kernel and twin times, at the last shape of each kernel:
+     columns from 32,769 on), 2^17 (the bound) and 2^16 (the bench's,
+     timed), fe_inner_product_batched at B = 1, 3, 16 with n = 300 and
+     4096 ([16, 4096] timed): the limbs of the wrappers' one launch (the
+     column sums; a row's last block combines and folds them) against the
+     twins inner_product_plain / inner_product_batched_plain, then the
+     public functions' at every shape (check_inner_products), on random
+     weak limbs with the edge rows among them; their bound is 160 bytes an
+     element over the HBM rate (400 IMADs an element is less).  Kernel and
+     twin times, at the last shape of each kernel:
      median of CUDA-event runs; the bound is the larger of the kernel's
      int32 multiply-adds over the card's IMAD rate and its bytes over the
      HBM rate; the sort kernels' library yardstick is a stable
@@ -71,7 +73,8 @@ Phases, each raising on failure (so the exit code is nonzero):
      of no K) for w = 4..8 with mixed, all-zero and all -2^(w-1) digits at
      threads 32 and 256 with slices 1 and 3, then at each
      MSM_ACCUM_PLAN entry, 4096 (timed) last.  fe_mul, fe_sq, fe_add,
-     ge_add and ge_double also get, beside the one-call time, the time a
+     ge_add, ge_double and both inner products also get, beside the
+     one-call time, the time a
      launch over a run of 100 launches (CUDA events / count) and the
      profiler's device time of the kernel itself a launch, and so does
      ge_reduce, at 64, 147, 256, 512, 1000 and 4096 (timed) points (1, 1,
@@ -172,7 +175,8 @@ Phases, each raising on failure (so the exit code is nonzero):
      parent commit unpacked with git archive): ``bench_calls --against
      DIR`` (ge_add and ge_double at 402 points, ge_double at one point,
      fe_mul at 272 and 10,000 elements, fe_sq at 272 contiguous, fe_add,
-     ge_reduce at 256, 1024 and 4096 points: a call, a launch over 100,
+     ge_reduce at 256, 1024 and 4096 points, the inner products at 2^16
+     and [16, 4096]: a call, a launch over 100,
      device time, allocations a call, beside a torch.add floor; the walls
      of the CLI's --benchmark, host prove, msm_auto 2^10, 2^11 and 2^20
      with the accumulator off, one fused verify and the fused prover
@@ -180,7 +184,8 @@ Phases, each raising on failure (so the exit code is nonzero):
      process at its checkout's root with its own wrappers and kernels:
      every output the same in every turn, and this checkout's ge_add,
      ge_double, fe_mul, fe_sq and ge_reduce one kernel and one allocation
-     a call.
+     a call, and so field.inner_product at 2^16 and
+     inner_product_batched at [16, 4096].
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -280,7 +285,9 @@ ACCUM_EDGE_SHAPES = {"mixed": (32, 3), "zero": (256, 1), "min": (256, 3)}
 RUN_TIMED = {"fe_mul": "fe_mul_kernel", "fe_sq": "fe_sq_kernel",
              "fe_add": "fe_add3_kernel", "ge_add": "ge_add_kernel",
              "ge_double": "ge_double_kernel",
-             "ge_reduce": "ge_reduce_kernel"}
+             "ge_reduce": "ge_reduce_kernel",
+             "fe_inner_product": "fe_inner_product_kernel",
+             "fe_inner_product_batched": "fe_inner_product_kernel"}
 RUN_LAUNCHES = 100
 # the bytes a doubling must move: x, y, z read (it never reads t), a point
 # written
@@ -701,18 +708,17 @@ def kernel_cases(rng, dev):
     for n in IP_SHAPES:
         a, b = ip_rows((1, n)), ip_rows((1, n))
         cases["fe_inner_product"].append(
-            (n, lambda a=a, b=b: cuda_field.inner_product_partial(
+            (n, lambda a=a, b=b: cuda_field.inner_product(
                 a, b, batched=False),
-             lambda a=a, b=b: F.ip_partial_plain(a, b),
+             lambda a=a, b=b: F.inner_product_batched_plain(a, b),
              n * IMAD_INNER, 2 * n * FE_BYTES + FE_BYTES))
         IP_OPERANDS[("fe_inner_product", n)] = (a[0], b[0])
     for rows, n in IP_BATCHED_SHAPES:
         a, b = ip_rows((rows, n)), ip_rows((rows, n))
         cases["fe_inner_product_batched"].append(
             (f"{rows} x {n}",
-             lambda a=a, b=b: cuda_field.inner_product_partial(
-                 a, b, batched=True),
-             lambda a=a, b=b: F.ip_partial_plain(a, b),
+             lambda a=a, b=b: cuda_field.inner_product(a, b, batched=True),
+             lambda a=a, b=b: F.inner_product_batched_plain(a, b),
              rows * n * IMAD_INNER, rows * (2 * n + 1) * FE_BYTES))
         IP_OPERANDS[("fe_inner_product_batched", (rows, n))] = (a, b)
     edge = edge_fe()
@@ -946,9 +952,9 @@ def time_repro_shape(dev, rate) -> None:
 def check_inner_products() -> None:
     """The public functions around the fe_inner_product kernels: at every
     shape of the kernel phase ``field.inner_product`` /
-    ``inner_product_batched`` on the card (the kernel, then the column
-    combine and the fold in torch) give the plain twins' limbs exactly; the
-    time of each at the timed shape, beside the twin's."""
+    ``inner_product_batched`` on the card (their checks, then the wrapper's
+    one launch) give the plain twins' limbs exactly; the time of each at
+    the timed shape, beside the twin's."""
     fns = {"fe_inner_product": (F.inner_product, F.inner_product_plain),
            "fe_inner_product_batched": (F.inner_product_batched,
                                         F.inner_product_batched_plain)}
@@ -963,8 +969,8 @@ def check_inner_products() -> None:
             ms = cuda_median_ms(lambda: fn(a, b))
             plain_ms = cuda_median_ms(lambda: plain(a, b), reps=3)
         log(f"kernel {name:15s} n={shape}: field.{fn.__name__} limbs equal "
-            "to the twin's" + (f", {ms:.4f} ms (kernel, combine and fold) "
-                               f"vs plain {plain_ms:.3f} ms" if timed else ""))
+            "to the twin's" + (f", {ms:.4f} ms a call vs plain "
+                               f"{plain_ms:.3f} ms" if timed else ""))
 
 
 def log_floor(name: str, n: int, dev) -> None:
@@ -1640,9 +1646,10 @@ def check_group4_lines(lines) -> None:
 
 
 # kernels that bench_calls --against holds to one launch and one allocation
-# a call: the in-place ones and the tile reduction (which has no torch.add
-# floor)
-ONE_CALL = IN_PLACE + ("ge_reduce",)
+# a call: the in-place ones, the tile reduction (which has no torch.add
+# floor) and the inner products' public functions
+ONE_CALL = IN_PLACE + ("ge_reduce", "fe_inner_product",
+                       "fe_inner_product_batched")
 AB_LINE = (rf"ab ({'|'.join(ONE_CALL)}) .* \[this\] .*; "
            r"kernels_a_call ([\d. ]+); allocations ([\d. ]+)"
            r"(?:; profile_runs [\d ]+)?")

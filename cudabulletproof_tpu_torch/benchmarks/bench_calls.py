@@ -18,7 +18,10 @@ cannot serve); and the Fermat chains, each at the width its checkout's
 wrapper picks: ``fe_invert`` on one element (``batch_invert``'s total, a
 point's ``to_bytes``) and at 4096, ``fe_pow2523`` at 17, 272 and 17,408
 (the decompression of one verify, of a merged batch of 16 and of 1024
-proofs).  Then the
+proofs); and the public inner products, ``field.inner_product`` at 2^16
+(the bench's) and ``field.inner_product_batched`` at [16, 4096], whose
+device time of every kernel a call and kernels a call hold their glue
+beside the kernel.  Then the
 walls downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add``
 and 854 ``fe_mul`` launches), host prove (and verify) at n = 64,
 ``msm_auto`` at 2^10 (the ladder route: ``ge_ladder_win``, ``ge_reduce``
@@ -80,6 +83,9 @@ MSM_STRAUS = 1 << 11
 MSM_SCAN = 1 << 20
 LADDER_BIN_SIZES = (147, 402, 1024)
 REDUCE_SIZES = (256, 1024, 4096)
+# the inner products: the bench's 2^16 (--benchmark) and [B, n] batched
+IP_SIZE = 1 << 16
+IP_BATCHED = (16, 4096)
 CHAIN_CASES = (("fe_invert", 1), ("fe_invert", 4096), ("fe_pow2523", 17),
                ("fe_pow2523", 272), ("fe_pow2523", 17 * 1024))
 # wall cases: label -> repetitions (median)
@@ -229,6 +235,18 @@ def kernel_cases(dev) -> list:
         cases.append((f"ge_ladder_bin [{n}] rows", "ge_ladder_bin_kernel",
                       lambda b=base, k=k: cuda_curve.ladder_bin(b, k),
                       lambda b=base, k=k: C.scalarmult_bin_plain(b, k)))
+    # the public functions (a parent's checks and glue count in the device
+    # time of every kernel of a call and in the kernels a call)
+    x, y = rows(IP_SIZE, F.L), rows(IP_SIZE, F.L)
+    cases.append((f"fe_inner_product [{IP_SIZE}] field.inner_product",
+                   "fe_inner_product_kernel", lambda: F.inner_product(x, y),
+                   lambda: F.inner_product_plain(x, y)))
+    rb, n = IP_BATCHED
+    xb, yb = (rows(rb * n, F.L).reshape(rb, n, F.L) for _ in "xy")
+    cases.append((f"fe_inner_product_batched [{rb} x {n}] "
+                  "field.inner_product_batched", "fe_inner_product_kernel",
+                  lambda: F.inner_product_batched(xb, yb),
+                  lambda: F.inner_product_batched_plain(xb, yb)))
     return cases
 
 

@@ -8,8 +8,8 @@ each, in its order.
   * a device line;
   * field multiplies at 2^16 elements, the plain twin (``field.mul_plain``)
     and the fe_mul kernel (``field.mul``), each with its roofline line, and
-    the inner product at 2^16 (``field.inner_product``, the
-    fe_inner_product kernel);
+    the inner product at 2^16 (``field.inner_product``: its limbs from one
+    fe_inner_product launch, the combine and the fold in the kernel);
   * ``msm_auto`` points per second at 2^16 (and 2^20 with ``--big``; or the
     ``--sizes`` given), with its roofline and the split-half check
     msm(P, s) == msm(P[:h], s[:h]) + msm(P[h:], s[h:]) (``curve.eq``);

@@ -109,6 +109,35 @@ __device__ __forceinline__ fe fe_fold_relax(const int32_t (&c)[FE_NC]) {
   return r;
 }
 
+// [M] coefficients -> [20], the JAX package's _fold_wide
+// (pallas_field.py:88) as the inner products run it on their 41 sums: while
+// more than 20 remain, coefficient 20+j folds x608 into j (its low 13 bits)
+// and j+1 (the rest), the top growing the row to max(20, M - 19), so 41
+// take two rounds (41 -> 22 -> 20).  Unlike fe_fold_relax (one round from a
+// product's 39 coefficients, limb 20 never formed, then the relaxation) it
+// does not relax: the caller does (fe_relax<3>, normalize_weak).
+template <int M>
+__device__ __forceinline__ fe fe_fold_wide(const int32_t (&t)[M]) {
+  if constexpr (M <= FE_L) {
+    fe r;
+#pragma unroll
+    for (int i = 0; i < FE_L; ++i) r.v[i] = i < M ? t[i] : 0;
+    return r;
+  } else {
+    constexpr int K = M - FE_L;                  // coefficients folded
+    constexpr int WN = K + 1 > FE_L ? K + 1 : FE_L;
+    int32_t acc[WN];
+#pragma unroll
+    for (int i = 0; i < WN; ++i) acc[i] = i < FE_L ? t[i] : 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      acc[j] += FE_FOLD * (t[FE_L + j] & FE_MASK);
+      acc[j + 1] += FE_FOLD * (t[FE_L + j] >> FE_W);
+    }
+    return fe_fold_wide<WN>(acc);
+  }
+}
+
 __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
   int32_t c[FE_NC];
 #pragma unroll

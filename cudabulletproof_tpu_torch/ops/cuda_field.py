@@ -23,13 +23,14 @@ allocates only its output and launches once; an operand whose batch dims do
 not flatten to one stride is copied first.  ``pow2523`` and ``invert`` also
 pass the width G of the lane groups that run each element's Fermat chain
 (``config.chain_lanes`` for the count unless the caller names one).
-``inner_product_partial`` takes ``[B, n, 20]`` operands and returns the
-kernels' ``[B, 39, 256]`` partial sums (zeroed with ``torch.zeros`` before
-the launch), which ``field.ip_combine`` turns into limbs.  It raises on
-anything the kernel does not take; there is no fallback.  The plain twins
-live in ``ops/field.py`` (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
-``invert_plain``, ``add3_plain``, ``sub3_plain``, ``ip_partial_plain``,
-``mul_chain_plain``).
+``inner_product`` takes ``[B, n, 20]`` operands and returns their ``[B,
+20]`` limbs from one launch (the column sums; the last block of a row
+combines and folds them), in one allocation; rows that are not contiguous
+and 16-byte aligned are copied once.  Each wrapper raises on anything its
+kernel does not take; there is no fallback.  The plain twins live in
+``ops/field.py`` (``mul_plain``, ``sq_plain``, ``pow2523_plain``,
+``invert_plain``, ``add3_plain``, ``sub3_plain``,
+``inner_product_batched_plain``, ``mul_chain_plain``).
 
 ``launches`` counts kernel launches per kernel, one per launch and nowhere
 else, so a run can show that its path went through the kernels.
@@ -47,9 +48,11 @@ L = 20
 launches = {"fe_mul": 0, "fe_sq": 0, "fe_pow2523": 0, "fe_invert": 0,
             "fe_add": 0, "fe_sub": 0, "fe_inner_product": 0,
             "fe_inner_product_batched": 0, "fe_mul_chain": 0}
-IP_COEFFS = 2 * L - 1      # convolution coefficients
-IP_WIDTH = 256             # lo columns 0..127, hi columns 128..255
+IP_LANES = 256             # elements a tile (the Pallas kernels' LANES)
+IP_COLUMNS = 128           # tile t belongs to column t % 128
+IP_TERMS = 2 * L + 1       # a column's terms: s0 at k, h0 at k + 1, h1 at k + 2
 MAX_ROWS = 65535           # the grid's y extent
+_tickets = {}              # (device index, raw stream) -> the rows' tickets
 
 
 def check_operands(width: int, ts) -> tuple:
@@ -201,12 +204,36 @@ def mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     return _run("fe_mul_chain", a, b, extra=(int(reps),))
 
 
-def inner_product_partial(a: torch.Tensor, b: torch.Tensor,
-                          batched: bool) -> torch.Tensor:
-    """The fe_inner_product kernels' partial [B, 39, 256] of a, b
-    [B, n, 20]: ``bp_fe_inner_product`` (counted as fe_inner_product) for
-    B = 1 when not `batched`, else ``bp_fe_inner_product_batched``."""
-    _, (fa, fb) = flat_operands(L, a, b)
+def _ip_rows(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its rows are contiguous and 16-byte aligned (the
+    kernel's int4 loads), else one contiguous copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _row_tickets(dev: torch.device) -> torch.Tensor:
+    """The inner-product kernel's per-row tickets for the current stream of
+    `dev`: zeros made at the stream's first call, which every launch leaves
+    zero (its last block of a row resets that row's), so each launch on the
+    stream finds them zero; a stream never shares them with another."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    tickets = _tickets.get(key)
+    if tickets is None:
+        tickets = _tickets[key] = torch.zeros(MAX_ROWS, dtype=torch.int32,
+                                              device=dev)
+    return tickets
+
+
+def inner_product(a: torch.Tensor, b: torch.Tensor,
+                  batched: bool) -> torch.Tensor:
+    """<a_i, b_i> mod p of a, b [B, n, 20] as [B, 20] weak limbs, the JAX
+    package's limbs (``field.inner_product_batched_plain``'s): one launch,
+    ``bp_fe_inner_product`` (counted as fe_inner_product) for B = 1 when
+    not `batched`, else ``bp_fe_inner_product_batched``, into one
+    allocation that holds the limbs and the kernel's column terms
+    ``[B, min(128, tiles), 41]``.  B = 0 launches nothing."""
+    dev, _ = check_operands(L, (a, b))
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"inner product of {tuple(a.shape)} and "
                          f"{tuple(b.shape)}: needs two [B, n, {L}]")
@@ -216,13 +243,20 @@ def inner_product_partial(a: torch.Tensor, b: torch.Tensor,
     if rows > MAX_ROWS:
         raise ValueError(f"{rows} inner products in one launch: at most "
                          f"{MAX_ROWS}")
-    partial = torch.zeros((rows, IP_COEFFS, IP_WIDTH), dtype=torch.int32,
-                          device=a.device)
+    columns = min(IP_COLUMNS, max(1, -(-n // IP_LANES)))
+    out = torch.empty(rows * (L + columns * IP_TERMS), dtype=torch.int32,
+                      device=dev)
     if rows:
-        name = "fe_inner_product_batched" if batched else "fe_inner_product"
+        ptr = out.data_ptr()
+        scratch = ptr + 4 * rows * L
+        a, b = _ip_rows(a), _ip_rows(b)
+        tickets = _row_tickets(dev)
         if batched:
-            build.launch(f"bp_{name}", a.device, fa, fb, partial, rows, n)
+            build.launch("bp_fe_inner_product_batched", dev, a, b, ptr,
+                         scratch, tickets, rows, n)
+            launches["fe_inner_product_batched"] += 1
         else:
-            build.launch(f"bp_{name}", a.device, fa, fb, partial, n)
-        launches[name] += 1
-    return partial
+            build.launch("bp_fe_inner_product", dev, a, b, ptr, scratch,
+                         tickets, n)
+            launches["fe_inner_product"] += 1
+    return out[:rows * L].view(rows, L)

@@ -383,8 +383,8 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 
 # --- inner products (pallas_field.inner_product / inner_product_batched) ----
-IP_LANES = 256               # elements a tile (the Pallas kernels' LANES)
-IP_COLUMNS = 128             # partial columns; tile t adds into t % 128
+IP_LANES = cuda_field.IP_LANES      # elements a tile
+IP_COLUMNS = cuda_field.IP_COLUMNS  # partial columns; tile t adds into t % 128
 IP_MAX = 1 << 17             # the column sums stay below 2^31 up to here
 _IP_CHUNK_TILES = 32         # tiles a step of the twin (bounds its memory)
 
@@ -402,8 +402,8 @@ def _ip_operands(a: torch.Tensor, b: torch.Tensor):
 
 
 def ip_partial_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the fe_inner_product kernels: [B, n, 20] x [B, n, 20]
-    -> the Pallas kernels' partial [B, 39, 256].  Elements are zero-padded
+    """The twins' first step: [B, n, 20] x [B, n, 20] -> the Pallas
+    kernels' partial [B, 39, 256].  Elements are zero-padded
     to tiles of 256; for each element the 39 convolution coefficients are
     split into lo = c & MASK and hi = c >> 13, each summed over its tile;
     tile t adds its lo sums into column t % 128 and its hi sums into column
@@ -458,7 +458,8 @@ def ip_combine(partial: torch.Tensor) -> torch.Tensor:
 
 def inner_product_batched_plain(a: torch.Tensor,
                                 b: torch.Tensor) -> torch.Tensor:
-    """Plain twin of ``inner_product_batched``: [B, n, 20] -> [B, 20]."""
+    """Plain twin of ``inner_product_batched`` (the fe_inner_product
+    kernels): [B, n, 20] -> [B, 20]."""
     return ip_combine(ip_partial_plain(a, b))
 
 
@@ -474,7 +475,7 @@ def inner_product_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _on_cpu(a, b):
         return inner_product_batched_plain(a, b)
     _ip_operands(a, b)
-    return ip_combine(cuda_field.inner_product_partial(a, b, batched=True))
+    return cuda_field.inner_product(a, b, batched=True)
 
 
 def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -483,5 +484,4 @@ def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _on_cpu(a, b):
         return inner_product_plain(a, b)
     _ip_operands(a[None], b[None])
-    return ip_combine(cuda_field.inner_product_partial(a[None], b[None],
-                                                       batched=False))[0]
+    return cuda_field.inner_product(a[None], b[None], batched=False)[0]

@@ -42,7 +42,7 @@ _N = ctypes.c_int64
 # C entry points: name -> argument types.  Every pointer and the stream are
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
 # the pointer); every count is c_int64.  Each returns cudaGetLastError().
-ABI = 5                # bp_abi_version() of the sources below
+ABI = 6                # bp_abi_version() of the sources below
 SIGNATURES = {
     # a, row stride of a, b, row stride of b, out, n, stream
     "bp_fe_mul": [_P, _N, _P, _N, _P, _N, _P],
@@ -57,9 +57,10 @@ SIGNATURES = {
     "bp_fe_invert": [_P, _P, _N, _N, _P],       # a, out, n, lanes, stream
     "bp_fe_add": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
     "bp_fe_sub": [_P, _P, _P, _N, _P],          # a, b, out, n, stream
-    "bp_fe_inner_product": [_P, _P, _P, _N, _P],  # a, b, partial, n, stream
-    # a, b, partial, rows, n, stream
-    "bp_fe_inner_product_batched": [_P, _P, _P, _N, _N, _P],
+    # a, b, out, scratch, tickets, n, stream
+    "bp_fe_inner_product": [_P, _P, _P, _P, _P, _N, _P],
+    # a, b, out, scratch, tickets, rows, n, stream
+    "bp_fe_inner_product_batched": [_P, _P, _P, _P, _P, _N, _N, _P],
     # p's x, y, z, t pointers and their row strides, out, n, stream
     "bp_ge_reduce": [*[_P] * 4, *[_N] * 4, _P, _N, _P],
     # pre, dg, part, out, n, nw, w, threads, slices, stream

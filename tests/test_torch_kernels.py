@@ -18,6 +18,7 @@ import make_host_golden as host_golden
 import make_prove_golden as golden
 from cudabulletproof_tpu_torch import cli, config
 from cudabulletproof_tpu_torch.models import fused as TFU, rangeproof as TR
+from cudabulletproof_tpu_torch.benchmarks.bench_calls import allocations
 from cudabulletproof_tpu_torch.models.generators import get_generators
 from cudabulletproof_tpu_torch.ops import (cuda_curve, cuda_field,
                                            cuda_micro, cuda_radix16,
@@ -915,44 +916,88 @@ def _ip_operands(rng, shape, dev):
     edges = np.array([[TF.BOUND] * 20, [0x1FFF] * 20, _raw(0), _raw(1),
                       _raw(TF.P - 1)], dtype=np.int32)
     n = shape[-1]
-    for row in x.reshape(-1, n, 20):
+    for row in x.reshape(-1, n, 20) if n else ():
         k = min(n, len(edges))
         row[rng.choice(n, size=k, replace=False)] = edges[:k]
     return torch.from_numpy(x).to(dev)
 
 
-@pytest.mark.parametrize("n", [1, 257, 32_768 + 300, 1 << 17])
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 32_768, 32_769,
+                               32_768 + 300, 1 << 17])
 def test_inner_product_kernel_equals_twin(dev, n):
-    """fe_inner_product: the partial [1, 39, 256] and the limbs equal the
-    twin's, exactly; field.inner_product takes the kernel (one launch);
-    the value is <a, b> mod p."""
+    """fe_inner_product: ``field.inner_product`` gives the twin's limbs,
+    exactly, from one counted launch and one allocation a call, at the
+    tile edges, the column boundary (tiles share columns from 32,769
+    elements on) and the bound; the value is <a, b> mod p."""
     rng = np.random.default_rng(n)
     a, b = _ip_operands(rng, (1, n), dev), _ip_operands(rng, (1, n), dev)
     before = cuda_field.launches["fe_inner_product"]
-    part = cuda_field.inner_product_partial(a, b, batched=False)
-    assert torch.equal(part, TF.ip_partial_plain(a, b))
     got = TF.inner_product(a[0], b[0])
     assert torch.equal(got, TF.inner_product_plain(a[0], b[0]))
+    assert torch.equal(cuda_field.inner_product(a, b, batched=False), got[None])
     assert cuda_field.launches["fe_inner_product"] == before + 2
+    assert allocations(lambda: TF.inner_product(a[0], b[0])) == 1
     if n <= 257:
         va, vb = TF.to_ints(a[0]), TF.to_ints(b[0])
         want = sum(x * y for x, y in zip(va, vb)) % TF.P
         assert TF.to_ints(got[None])[0] % TF.P == want
 
 
-@pytest.mark.parametrize("rows,n", [(1, 300), (3, 300), (16, 4096)])
+@pytest.mark.parametrize("rows,n", [(1, 300), (3, 300), (16, 4096),
+                                    (2, 32_769), (5, 0)])
 def test_inner_product_batched_kernel_equals_twin(dev, rows, n):
-    rng = np.random.default_rng(rows * n)
+    """fe_inner_product_batched: the twin's limbs from one counted launch
+    and one allocation a call; a second row is refused unbatched."""
+    rng = np.random.default_rng(rows * n + rows)
     a, b = _ip_operands(rng, (rows, n), dev), _ip_operands(rng, (rows, n), dev)
     before = cuda_field.launches["fe_inner_product_batched"]
-    part = cuda_field.inner_product_partial(a, b, batched=True)
-    assert torch.equal(part, TF.ip_partial_plain(a, b))
     got = TF.inner_product_batched(a, b)
     assert torch.equal(got, TF.inner_product_batched_plain(a, b))
+    assert torch.equal(cuda_field.inner_product(a, b, batched=True), got)
     assert cuda_field.launches["fe_inner_product_batched"] == before + 2
+    assert allocations(lambda: TF.inner_product_batched(a, b)) == 1
     if rows > 1:
         with pytest.raises(ValueError, match="one row"):
-            cuda_field.inner_product_partial(a, b, batched=False)
+            cuda_field.inner_product(a, b, batched=False)
+
+
+def test_inner_product_operand_layouts(dev):
+    """Rows that are not contiguous (a transposed batch) or not 16-byte
+    aligned (a view one row in) are copied once, and the limbs are the
+    twin's; no row is launched for B = 0."""
+    rng = np.random.default_rng(7)
+    a, b = _ip_operands(rng, (2, 301), dev), _ip_operands(rng, (2, 301), dev)
+    t = a.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not t.is_contiguous()
+    assert torch.equal(TF.inner_product_batched(t, b),
+                       TF.inner_product_batched_plain(a, b))
+    flat = a.reshape(-1)[1:1 + 300 * 20].reshape(300, 20)
+    assert flat.data_ptr() % 16 != 0
+    assert torch.equal(TF.inner_product(flat, b[0, :300]),
+                       TF.inner_product_plain(flat, b[0, :300]))
+    before = cuda_field.launches["fe_inner_product_batched"]
+    empty = TF.inner_product_batched(a[:0], b[:0])
+    assert empty.shape == (0, 20)
+    assert cuda_field.launches["fe_inner_product_batched"] == before
+
+
+def test_inner_product_tickets_per_stream(dev):
+    """Calls on two streams take two ticket arrays, and every launch leaves
+    its stream's zero; the limbs are the twin's on both."""
+    rng = np.random.default_rng(11)
+    a, b = _ip_operands(rng, (3, 1000), dev), _ip_operands(rng, (3, 1000), dev)
+    want = TF.inner_product_batched_plain(a, b)
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        on_side = TF.inner_product_batched(a, b)
+    here = TF.inner_product_batched(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(on_side, want) and torch.equal(here, want)
+    streams = {k[1] for k in cuda_field._tickets if k[0] == dev.index}
+    assert {side.cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream} <= streams
+    assert not any(t.any() for t in cuda_field._tickets.values())
 
 
 def test_aggregate_on_card_matches_jax_fixture(dev):

@@ -163,6 +163,15 @@ def test_c_entries_take_the_bound_arguments():
     assert _c_params(src, "bp_fe_sq") == [
         "const int32_t* a", "int64_t sa", "int32_t* out", "int64_t n",
         "void* stream"]
+    # the inner products write finished limbs and take their scratch and
+    # the stream's row tickets
+    assert _c_params(src, "bp_fe_inner_product") == [
+        "const int32_t* a", "const int32_t* b", "int32_t* out",
+        "int32_t* scratch", "int32_t* tickets", "int64_t n", "void* stream"]
+    assert _c_params(src, "bp_fe_inner_product_batched") == [
+        "const int32_t* a", "const int32_t* b", "int32_t* out",
+        "int32_t* scratch", "int32_t* tickets", "int64_t rows", "int64_t n",
+        "void* stream"]
     # ge_reduce reads its points in place, as ge_double does
     assert _c_params(src, "bp_ge_reduce") == [
         "const int32_t* px", "const int32_t* py", "const int32_t* pz",
@@ -269,14 +278,16 @@ class _Library:
             setattr(self, name, types.SimpleNamespace())
 
 
-@pytest.mark.parametrize("version", [None, 2, 3, 4, build.ABI, build.ABI + 1])
+@pytest.mark.parametrize("version", [None, 2, 3, 4, 5, build.ABI,
+                                     build.ABI + 1])
 def test_older_library_is_refused(monkeypatch, version):
     """``build.load`` binds every entry of a library of this checkout's C
     interface, with the argument types of SIGNATURES, and refuses a library
     of any other (an older ge_double entry took one packed point, older
     fe_invert / fe_pow2523 entries no group width, older fe_sq / ge_reduce
-    entries packed rows)."""
-    assert build.ABI == 5
+    entries packed rows, older inner-product entries a zeroed partial and
+    no scratch)."""
+    assert build.ABI == 6
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: _Library(version))
     if version != build.ABI:
         with pytest.raises(RuntimeError, match="C interface version"):
