@@ -30,7 +30,9 @@ Phases, each raising on failure (so the exit code is nonzero):
      timed a call over a run of 20 calls, with each of their kernels'
      device time a launch and launches a call (a launch a cross-lane
      stage); sort_hist / sort_rank at 2^16 keys with radix 64 and 128
-     (the 6 + 7 bit passes of w = 13), random, all equal and two values.
+     (the 6 + 7 bit passes of w = 13), random, all equal and two values,
+     and radix 256, then at 2^20 keys, radix 128, and last at 2^16, radix
+     128 (timed, beside a stable torch.argsort of the same keys).
      fe_inner_product at 1, 255, 256, 257, 10,000, 33,068 (tiles share
      columns from 32,769 on), 2^17 (the bound) and 2^16 (the bench's,
      timed), fe_inner_product_batched at B = 1, 3, 16 with n = 300 and
@@ -73,8 +75,8 @@ Phases, each raising on failure (so the exit code is nonzero):
      of no K) for w = 4..8 with mixed, all-zero and all -2^(w-1) digits at
      threads 32 and 256 with slices 1 and 3, then at each
      MSM_ACCUM_PLAN entry, 4096 (timed) last.  fe_mul, fe_sq, fe_add,
-     ge_add, ge_double and both inner products also get, beside the
-     one-call time, the time a
+     ge_add, ge_double, both inner products and both sort kernels also
+     get, beside the one-call time, the time a
      launch over a run of 100 launches (CUDA events / count) and the
      profiler's device time of the kernel itself a launch, and so does
      ge_reduce, at 64, 147, 256, 512, 1000 and 4096 (timed) points (1, 1,
@@ -185,7 +187,10 @@ Phases, each raising on failure (so the exit code is nonzero):
      every output the same in every turn, and this checkout's ge_add,
      ge_double, fe_mul, fe_sq and ge_reduce one kernel and one allocation
      a call, and so field.inner_product at 2^16 and
-     inner_product_batched at [16, 4096].
+     inner_product_batched at [16, 4096], and sort_hist and sort_rank at
+     [2^16, radix 128] (beside sort.grouping_order of w = 13 digits and a
+     stable torch.argsort of each's keys, and the walls of msm_pippenger
+     at 2^16 with and without MSM_PALLAS_SORT).
 The line before the last is the card's name and power limit, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -287,7 +292,8 @@ RUN_TIMED = {"fe_mul": "fe_mul_kernel", "fe_sq": "fe_sq_kernel",
              "ge_double": "ge_double_kernel",
              "ge_reduce": "ge_reduce_kernel",
              "fe_inner_product": "fe_inner_product_kernel",
-             "fe_inner_product_batched": "fe_inner_product_kernel"}
+             "fe_inner_product_batched": "fe_inner_product_kernel",
+             "sort_hist": "sort_hist_kernel", "sort_rank": "sort_rank_kernel"}
 RUN_LAUNCHES = 100
 # the bytes a doubling must move: x, y, z read (it never reads t), a point
 # written
@@ -317,7 +323,10 @@ FOLD_ROWS = (1, 100, 128, 2047, 8191)
 # the card path's config.MSM_FOLD_LANES_CUDA (8191 rows, timed, last)
 FOLD_CASES = ([(m, G4.JAX_FOLD_LANES) for m in FOLD_ROWS]
               + [(m, config.MSM_FOLD_LANES_CUDA) for m in FOLD_ROWS])
+# the counting sort: one window's keys at 2^16 (the timed case, last) and
+# 2^20 keys (1024 rows a slot)
 SORT_KEYS = 1 << 16
+SORT_KEYS_BIG = 1 << 20
 # the field add / sub kernels: element counts, the last the CLI's
 ADD_SHAPES = (1, 255, 257, 10_000)
 # the inner products: element counts (the tile edges, 32,768 + 300 where
@@ -671,29 +680,34 @@ def kernel_cases(rng, dev):
              lambda b=body, ln=lanes: cuda_curve.bucket_fold(b, ln),
              lambda b=body, ln=lanes: PP.bucket_fold_plain(b, ln),
              *G4.fold_work(m, lanes)))
-    nblk = SORT_KEYS // SO.BLOCK
-    for label, radix, keys in (
-            ("radix 128, all equal", 128, np.full(SORT_KEYS, 127)),
-            ("radix 64, two values", 64,
+    for n, label, radix, keys in (
+            (SORT_KEYS, "radix 128, all equal", 128,
+             np.full(SORT_KEYS, 127)),
+            (SORT_KEYS, "radix 64, two values", 64,
              rng.choice([3, 40], size=SORT_KEYS)),
-            ("radix 64", 64, rng.integers(0, 64, size=SORT_KEYS)),
-            ("radix 128", 128, rng.integers(0, 128, size=SORT_KEYS))):
-        kb = t(keys.astype(np.int32).reshape(nblk, SO.SUB, SO.LN))
+            (SORT_KEYS, "radix 64", 64, rng.integers(0, 64, size=SORT_KEYS)),
+            (SORT_KEYS, "radix 256", 256,
+             rng.integers(0, 256, size=SORT_KEYS)),
+            (SORT_KEYS_BIG, "radix 128", 128,
+             rng.integers(0, 128, size=SORT_KEYS_BIG)),
+            (SORT_KEYS, "radix 128", 128,
+             rng.integers(0, 128, size=SORT_KEYS))):
+        kb = t(keys.astype(np.int32).reshape(-1, SO.SUB, SO.LN))
         base = SO.hist_plain(kb, radix).reshape(-1)
         base = (torch.cumsum(base, 0) - base).to(torch.int32).reshape(
             radix, SO.SUB, SO.LN)
         flat = kb.permute(1, 2, 0).reshape(-1)          # traversal order
         table = radix * SO.BLOCK * 4
-        label = f"{SORT_KEYS} {label}"
+        label = f"{n} {label}"
         cases["sort_hist"].append(
             (label, lambda kb=kb, r=radix: cuda_sort.hist(kb, r),
              lambda kb=kb, r=radix: SO.hist_plain(kb, r),
-             0, SORT_KEYS * 4 + table,
+             0, n * 4 + table,
              lambda f=flat: torch.argsort(f, stable=True)))
         cases["sort_rank"].append(
             (label, lambda kb=kb, b=base, r=radix: cuda_sort.rank(kb, b, r),
              lambda kb=kb, b=base, r=radix: SO.rank_plain(kb, b, r),
-             0, 2 * SORT_KEYS * 4 + table,
+             0, 2 * n * 4 + table,
              lambda f=flat: torch.argsort(f, stable=True)))
     def ip_rows(shape):
         """Random weak limbs [*shape, 20] with the edge rows at random
@@ -1647,9 +1661,9 @@ def check_group4_lines(lines) -> None:
 
 # kernels that bench_calls --against holds to one launch and one allocation
 # a call: the in-place ones, the tile reduction (which has no torch.add
-# floor) and the inner products' public functions
+# floor), the inner products' public functions and the counting sort's
 ONE_CALL = IN_PLACE + ("ge_reduce", "fe_inner_product",
-                       "fe_inner_product_batched")
+                       "fe_inner_product_batched", "sort_hist", "sort_rank")
 AB_LINE = (rf"ab ({'|'.join(ONE_CALL)}) .* \[this\] .*; "
            r"kernels_a_call ([\d. ]+); allocations ([\d. ]+)"
            r"(?:; profile_runs [\d ]+)?")

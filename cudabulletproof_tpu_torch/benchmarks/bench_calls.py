@@ -21,13 +21,18 @@ point's ``to_bytes``) and at 4096, ``fe_pow2523`` at 17, 272 and 17,408
 proofs); and the public inner products, ``field.inner_product`` at 2^16
 (the bench's) and ``field.inner_product_batched`` at [16, 4096], whose
 device time of every kernel a call and kernels a call hold their glue
-beside the kernel.  Then the
+beside the kernel; and the counting sort at one window's 2^16 keys,
+``sort_hist`` and ``sort_rank`` at radix 128 and ``sort.grouping_order``
+of w = 13 digits in 7-bit passes, each beside a stable ``torch.argsort``
+of the same keys.  Then the
 walls downstream of them: ``cli.main(["--benchmark"])`` (489 ``ge_add``
 and 854 ``fe_mul`` launches), host prove (and verify) at n = 64,
 ``msm_auto`` at 2^10 (the ladder route: ``ge_ladder_win``, ``ge_reduce``
 on 4 tiles, 2 ``ge_add``) and 2^11 (the Straus route over ``ge_add`` / ``ge_double``) and at 2^20 with
 ``config.MSM_ACCUM_KERNEL`` off (the sort-plus-scan route, 4,160
-``ge_double`` launches), one fused verify, and the fused prover at n = 64
+``ge_double`` launches), ``msm_pippenger`` at 2^16 (w = 13) grouping by
+``torch.argsort`` and under ``config.MSM_PALLAS_SORT`` (the two sort
+kernels, 2 passes a window), one fused verify, and the fused prover at n = 64
 under ``config.LADDER_WINDOW`` = 0 (``ge_ladder_bin``) on fixed
 randomness.
 
@@ -86,6 +91,11 @@ REDUCE_SIZES = (256, 1024, 4096)
 # the inner products: the bench's 2^16 (--benchmark) and [B, n] batched
 IP_SIZE = 1 << 16
 IP_BATCHED = (16, 4096)
+# the counting sort: one window's keys at 2^16 (w = 13 digits, 7-bit
+# passes: config.MSM_PALLAS_SORT_BITS)
+SORT_KEYS = 1 << 16
+SORT_WINDOW = 13
+SORT_BITS = 7
 CHAIN_CASES = (("fe_invert", 1), ("fe_invert", 4096), ("fe_pow2523", 17),
                ("fe_pow2523", 272), ("fe_pow2523", 17 * 1024))
 # wall cases: label -> repetitions (median)
@@ -93,6 +103,8 @@ WALL_REPS = {"cli.main(['--benchmark'])": 1, f"host prove n={N_BITS}": 5,
              f"msm_auto n={MSM_LADDER}": 5,
              f"msm_auto n={MSM_STRAUS}": 3,
              f"msm_auto n={MSM_SCAN} accum off": 1,
+             f"msm_pippenger n={SORT_KEYS} argsort": 5,
+             f"msm_pippenger n={SORT_KEYS} MSM_PALLAS_SORT": 5,
              f"fused.verify n={N_BITS}": 3,
              f"fused prove n={N_BITS} LADDER_WINDOW=0": 1}
 # runs a script file as __main__ with the checkout of the current directory
@@ -247,7 +259,42 @@ def kernel_cases(dev) -> list:
                   "field.inner_product_batched", "fe_inner_product_kernel",
                   lambda: F.inner_product_batched(xb, yb),
                   lambda: F.inner_product_batched_plain(xb, yb)))
-    return cases
+    return cases + sort_cases(dev, rng)
+
+
+def sort_cases(dev, rng) -> list:
+    """The counting sort at one window's 2^16 keys: sort_hist and sort_rank
+    at radix 128 (the 7-bit pass), sort.grouping_order of w = 13 digits in
+    7-bit passes (the kernels and the torch glue between them; its device
+    time a launch is that of a sort kernel), each beside a stable
+    torch.argsort of the same keys."""
+    from cudabulletproof_tpu_torch.ops import cuda_sort, sort as SO
+    n, radix = SORT_KEYS, 1 << SORT_BITS
+    kb = torch.from_numpy(rng.integers(0, radix, size=n, dtype=np.int32)
+                          .reshape(-1, SO.SUB, SO.LN)).to(dev)
+    flat = SO.hist_plain(kb, radix).reshape(-1)
+    base = (torch.cumsum(flat, 0) - flat).to(torch.int32).reshape(
+        radix, SO.SUB, SO.LN)
+    keys = kb.permute(1, 2, 0).reshape(-1)              # traversal order
+    d = torch.from_numpy(rng.integers(0, 1 << SORT_WINDOW, size=n,
+                                      dtype=np.int32)).to(dev)
+
+    def argsort(x):
+        return (f"torch.argsort [{n}] stable", "",
+                lambda: torch.argsort(x, stable=True),
+                lambda: torch.sort(x, stable=True)[1])
+
+    return [(f"sort_hist [{n}, radix {radix}]", "sort_hist_kernel",
+             lambda: cuda_sort.hist(kb, radix),
+             lambda: SO.hist_plain(kb, radix)),
+            (f"sort_rank [{n}, radix {radix}]", "sort_rank_kernel",
+             lambda: cuda_sort.rank(kb, base, radix),
+             lambda: SO.rank_plain(kb, base, radix)),
+            argsort(keys),
+            (f"sort.grouping_order [{n}, w {SORT_WINDOW}]", "sort_",
+             lambda: SO.grouping_order(d, SORT_WINDOW, SORT_BITS),
+             lambda: torch.argsort(d, stable=True).to(torch.int32)),
+            argsort(d)]
 
 
 def joined(out) -> torch.Tensor:
@@ -287,7 +334,7 @@ def measure_walls(dev) -> list:
     from cudabulletproof_tpu_torch.models.generators import get_generators
     from cudabulletproof_tpu_torch.ops import cuda_curve, cuda_field
     from cudabulletproof_tpu_torch.ops import curve as C, field as F
-    from cudabulletproof_tpu_torch.ops import msm as M
+    from cudabulletproof_tpu_torch.ops import msm as M, pippenger as PP
     from cudabulletproof_tpu_torch.ops import scalar_field as SC
     from cudabulletproof_tpu_torch.utils import oracle
     rng = np.random.default_rng(SEED + 1)
@@ -322,6 +369,15 @@ def measure_walls(dev) -> list:
         finally:
             config.MSM_ACCUM_KERNEL = True
 
+    def pippenger(pallas_sort: bool):
+        config.MSM_PALLAS_SORT = pallas_sort
+        try:
+            return C.to_bytes(PP.msm_pippenger(
+                C.GE(*(c[:SORT_KEYS] for c in big_pts)), big_sc[:SORT_KEYS],
+                w=SORT_WINDOW))
+        finally:
+            config.MSM_PALLAS_SORT = False
+
     def prove_bin():
         config.LADDER_WINDOW = 0
         try:
@@ -345,6 +401,9 @@ def measure_walls(dev) -> list:
            f"msm_auto n={MSM_STRAUS}": lambda: C.to_bytes(M.msm_auto(pts,
                                                                      sc)),
            f"msm_auto n={MSM_SCAN} accum off": accum_off,
+           f"msm_pippenger n={SORT_KEYS} argsort": lambda: pippenger(False),
+           f"msm_pippenger n={SORT_KEYS} MSM_PALLAS_SORT":
+               lambda: pippenger(True),
            f"fused.verify n={N_BITS}": lambda: fused.verify(proof, gens),
            f"fused prove n={N_BITS} LADDER_WINDOW=0": prove_bin}
     out = []

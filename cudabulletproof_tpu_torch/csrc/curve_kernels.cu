@@ -336,7 +336,7 @@ unsigned int blocks_for(int64_t n, int threads) {
 // The version of the library's C interface (utils/build.py's ABI): raised
 // whenever an entry's arguments change, so that a library built from
 // other sources is refused rather than called with the wrong arguments.
-extern "C" int bp_abi_version() { return 6; }
+extern "C" int bp_abi_version() { return 7; }
 
 // p, q: coordinates x, y, z, t, each a base pointer and a row stride in
 // int32 (0 = one point broadcast); out [n, 80].

@@ -74,16 +74,42 @@
 // tail 20 KB of shared memory); no stack, no spills.
 //
 // Counting sort, one LSD pass over keys [nblk, 8, 128] with values below
-// radix <= 256: 1024 (sublane, lane) slots, each with its own counters,
-// laid out [radix, 8, 128] in global memory so a warp's counters are
-// neighbours.  One thread per slot walks the nblk blocks in order, so a
-// slot's ranks are stable in (slot, block) order by construction, the
-// traversal convention of ops/sort.py.  sort_hist counts; sort_rank starts
-// each counter at its base (the exclusive prefix of the counts, computed in
-// torch between the two) and hands out ranks.  A key outside [0, radix)
-// matches no counter: uncounted, rank 0, as in the Pallas kernels.  They
-// move 4 bytes a key per pass plus the counters, and at 2^16 keys are
-// bound by the 1024 threads' dependent read-modify-writes.
+// radix <= 256.  Each of the 1024 (sublane, lane) slots sorts its own
+// column of nblk keys; a slot's ranks are stable in (slot, block) order, the
+// traversal convention of ops/sort.py.  sort_hist counts each slot's keys
+// of each value; sort_rank hands each key base[key, slot] (the exclusive
+// prefix of the counts, computed in torch between the two) plus the number
+// of equal keys in earlier blocks of its slot.  A key outside [0, radix)
+// matches no counter: uncounted, rank 0, as in the Pallas kernels.
+//
+// Design on Hopper.  The Pallas kernels walk the grid of key blocks in
+// order on one core with the counters in VMEM; one thread a slot walking
+// its column with a global read-modify-write a key (the first port) kept
+// 16 blocks busy and ran nblk dependent round trips to L2.  Here a block
+// of 256 threads owns G consecutive slots outright, thread x slot x % G:
+// its key loads and rank stores are whole 32-byte sectors, its counters
+// [v][G] live in shared memory (never in global memory), and no block
+// reads another's output.
+//   * sort_hist, G = 8 (128 blocks): the block's 32 row phases count rows
+//     t = x / 8 (mod 32) into [radix][8] int32 counters with shared
+//     atomicAdd (threads collide only on equal keys of a slot), then the
+//     block stores its columns of counts.
+//   * sort_rank, G = 16 (64 blocks): the 16 row chunks of ceil(nblk / 16)
+//     rows each.  Phase 1: chunk c counts its rows into its own counters
+//     [radix][16] (a thread the only writer of its column: plain
+//     read-modify-writes).  Phase 2: each counter becomes the exclusive
+//     prefix over the chunks' tables, and the block loads base[., slot]
+//     into shared memory.  Phase 3: the chunk walks its rows again and
+//     hands out base + counter, counter += 1: ranks in row order, since
+//     every earlier chunk's equal keys are in the prefix.  The counters are
+//     16 bits while nblk < 2^16 (no count or prefix reaches 2^16; phase 2
+//     adds two of them a 32-bit word), else 32 bits in 8 chunks of 128
+//     threads: at most 144 KB of shared memory (radix 256).
+// Each G beat the other two of 8, 16 and 32 slots a block in turns on the
+// card at [2^16, radix 128] (PERF.md).  sort_hist reads 4 bytes a key and
+// writes a [radix, 8, 128] table, sort_rank reads the keys and the table
+// and writes 4 bytes a key; at 2^16 keys a launch's fixed latency is most
+// of either's time.
 #include <cuda_runtime.h>
 
 #include "fe25519.cuh"
@@ -93,8 +119,11 @@ namespace {
 constexpr int kRow = 4 * bp::FE_L;     // int32 per point row
 constexpr int kPointThreads = 32;      // a block of the point kernels: 8 units
 constexpr int kTailUnits = 64;         // units of the fold's last block
-constexpr int kSlots = 8 * 128;        // counter slots of the counting sort
-constexpr int kSortThreads = 64;
+constexpr int kSlots = 8 * 128;        // slots of the counting sort
+constexpr int kHistSlots = 8;          // slots a block of sort_hist
+constexpr int kRankSlots = 16;         // slots a block of sort_rank
+constexpr int kSortThreads = 256;
+constexpr int kMaxRadix = 256;
 
 // One coordinate: limb i at p[i * stride].
 __device__ __forceinline__ bp::fe fe_ld(const int32_t* p, int64_t stride) {
@@ -281,39 +310,105 @@ ge_halve_tail_kernel(const int32_t* __restrict__ r, int32_t* __restrict__ out,
   if (t == 0) fe_st(out + g.c * bp::FE_L, 1, unit_load(sm, 0, g.c));
 }
 
-__global__ void __launch_bounds__(kSortThreads)
-sort_hist_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ counts,
-                 int64_t nblk, int radix) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= kSlots) return;
-#pragma unroll 1
-  for (int b = 0; b < radix; ++b) counts[b * kSlots + slot] = 0;
-#pragma unroll 1
-  for (int64_t t = 0; t < nblk; ++t) {
-    const int32_t k = keys[t * kSlots + slot];
-    if (k >= 0 && k < radix) counts[k * kSlots + slot] += 1;
-  }
+// key < radix, counted: the compare of the Pallas kernels, -1 and radix
+// out as well.
+__device__ __forceinline__ bool in_radix(int32_t k, int radix) {
+  return static_cast<unsigned>(k) < static_cast<unsigned>(radix);
 }
 
-__global__ void __launch_bounds__(kSortThreads)
-sort_rank_kernel(const int32_t* __restrict__ keys,
-                 const int32_t* __restrict__ base, int32_t* __restrict__ cnt,
-                 int32_t* __restrict__ rank, int64_t nblk, int radix) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= kSlots) return;
+// f(t, key of row t) for rows t, t + step, ... < end of one slot's column
+// `col`, four loads in flight before their four calls.
+template <typename F>
+__device__ __forceinline__ void walk(const int32_t* __restrict__ col,
+                                     int64_t t, int64_t end, int64_t step,
+                                     F f) {
 #pragma unroll 1
-  for (int b = 0; b < radix; ++b)
-    cnt[b * kSlots + slot] = base[b * kSlots + slot];
-#pragma unroll 1
-  for (int64_t t = 0; t < nblk; ++t) {
-    const int32_t k = keys[t * kSlots + slot];
-    int32_t r = 0;
-    if (k >= 0 && k < radix) {
-      r = cnt[k * kSlots + slot];
-      cnt[k * kSlots + slot] = r + 1;
-    }
-    rank[t * kSlots + slot] = r;
+  for (; t + 3 * step < end; t += 4 * step) {
+    int32_t k[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) k[u] = col[(t + u * step) * kSlots];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) f(t + u * step, k[u]);
   }
+#pragma unroll 1
+  for (; t < end; t += step) f(t, col[t * kSlots]);
+}
+
+// counts[v, slot] for the G = kHistSlots slots of block g: slot g * G +
+// (thread % G), rows t = thread / G (mod threads / G).
+__global__ void __launch_bounds__(kSortThreads)
+sort_hist_kernel(const int32_t* __restrict__ keys,
+                 int32_t* __restrict__ counts, int64_t nblk, int radix) {
+  constexpr int G = kHistSlots;
+  __shared__ int32_t cnt[kMaxRadix * G];                 // [radix][G]
+  const int lane = threadIdx.x % G, phase = threadIdx.x / G;
+  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * G;
+  for (int i = threadIdx.x; i < radix * G; i += kSortThreads) cnt[i] = 0;
+  __syncthreads();
+  int32_t* mine = cnt + lane;
+  walk(keys + slot0 + lane, phase, nblk, kSortThreads / G,
+       [&](int64_t, int32_t k) {
+         if (in_radix(k, radix)) atomicAdd(mine + k * G, 1);
+       });
+  __syncthreads();
+  for (int i = threadIdx.x; i < radix * G; i += kSortThreads)
+    counts[(i / G) * kSlots + slot0 + i % G] = cnt[i];
+}
+
+// rank[t, slot] for the G = kRankSlots slots of block g, T threads: slot
+// g * G + (thread % G) in chunk thread / G of the T / G chunks of rows.
+template <typename Cnt, int T>
+__global__ void __launch_bounds__(T)
+sort_rank_kernel(const int32_t* __restrict__ keys,
+                 const int32_t* __restrict__ base,
+                 int32_t* __restrict__ rank, int64_t nblk, int radix) {
+  constexpr int G = kRankSlots, C = T / G;               // C chunks of rows
+  extern __shared__ int4 smem[];
+  const int table = radix * G;                           // a chunk's counters
+  int32_t* first = reinterpret_cast<int32_t*>(smem);     // [radix][G]
+  Cnt* cnt = reinterpret_cast<Cnt*>(first + table);      // [C][radix][G]
+  const int lane = threadIdx.x % G, part = threadIdx.x / G;
+  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * G;
+  const int zeros = C * table * static_cast<int>(sizeof(Cnt)) / 16;
+  int4* z = reinterpret_cast<int4*>(cnt);
+  for (int i = threadIdx.x; i < zeros; i += T) z[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int64_t chunk = (nblk + C - 1) / C;
+  const int64_t t0 = part * chunk < nblk ? part * chunk : nblk;
+  const int64_t t1 = t0 + chunk < nblk ? t0 + chunk : nblk;
+  const int32_t* col = keys + slot0 + lane;
+  Cnt* mine = cnt + part * table + lane;
+  walk(col, t0, t1, 1, [&](int64_t, int32_t k) {
+    if (in_radix(k, radix)) mine[k * G] += 1;
+  });
+  for (int i = threadIdx.x; i < table; i += T)
+    first[i] = base[(i / G) * kSlots + slot0 + i % G];
+  __syncthreads();
+  // the exclusive prefix over the C tables, a 32-bit word at a time: a
+  // word holds 4 / sizeof(Cnt) counters, and no sum carries out of its own
+  // (it is at most nblk, below 2^16 for 16-bit counters)
+  uint32_t* words = reinterpret_cast<uint32_t*>(cnt);
+  const int per = table * static_cast<int>(sizeof(Cnt)) / 4;
+  for (int i = threadIdx.x; i < per; i += T) {
+    uint32_t run = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const uint32_t v = words[c * per + i];
+      words[c * per + i] = run;
+      run += v;
+    }
+  }
+  __syncthreads();
+  int32_t* out = rank + slot0 + lane;
+  walk(col, t0, t1, 1, [&](int64_t t, int32_t k) {
+    int32_t r = 0;
+    if (in_radix(k, radix)) {
+      const Cnt c = mine[k * G];
+      mine[k * G] = static_cast<Cnt>(c + 1);
+      r = first[k * G + lane] + static_cast<int32_t>(c);
+    }
+    out[t * kSlots] = r;
+  });
 }
 
 bool pow2(int64_t v) { return v >= 1 && (v & (v - 1)) == 0; }
@@ -343,6 +438,22 @@ cudaError_t lane_scan(int32_t* buf, int32_t* flags, int lanes, int32_t* dst,
   ge_lane_scan_stage_kernel<<<blocks, kPointThreads, 0, st>>>(
       buf + cur * half, flags ? flags + cur * lanes : nullptr, dst, nullptr,
       w, s, lanes, 1, dpoint, dlimb, dbls);
+  return cudaGetLastError();
+}
+
+template <typename Cnt, int T>
+cudaError_t launch_rank(const int32_t* keys, const int32_t* base,
+                        int32_t* rank, int64_t nblk, int radix,
+                        cudaStream_t st) {
+  // the bases [radix][G] int32, then T / G chunks' counters [radix][G]
+  const int bytes =
+      radix * kRankSlots * static_cast<int>(4 + T / kRankSlots * sizeof(Cnt));
+  const cudaError_t err = cudaFuncSetAttribute(
+      sort_rank_kernel<Cnt, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  sort_rank_kernel<Cnt, T><<<kSlots / kRankSlots, T, bytes, st>>>(
+      keys, base, rank, nblk, radix);
   return cudaGetLastError();
 }
 
@@ -401,23 +512,27 @@ extern "C" int bp_ge_bucket_fold(const int32_t* body, int32_t* buf,
 // keys [nblk, 8, 128] -> counts [radix, 8, 128]; radix in 1..256.
 extern "C" int bp_sort_hist(const int32_t* keys, int32_t* counts, int64_t nblk,
                             int64_t radix, void* stream) {
-  if (nblk < 0 || radix < 1 || radix > 256)
+  if (nblk < 0 || radix < 1 || radix > kMaxRadix)
     return static_cast<int>(cudaErrorInvalidValue);
-  sort_hist_kernel<<<blocks_for(kSlots, kSortThreads), kSortThreads, 0,
+  sort_hist_kernel<<<kSlots / kHistSlots, kSortThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       keys, counts, nblk, static_cast<int>(radix));
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys [nblk, 8, 128], base [radix, 8, 128] -> rank [nblk, 8, 128]; cnt
-// [radix, 8, 128] is scratch.  radix in 1..256.
+// keys [nblk, 8, 128], base [radix, 8, 128] -> rank [nblk, 8, 128]; radix
+// in 1..256.
 extern "C" int bp_sort_rank(const int32_t* keys, const int32_t* base,
-                            int32_t* cnt, int32_t* rank, int64_t nblk,
-                            int64_t radix, void* stream) {
-  if (nblk < 0 || radix < 1 || radix > 256)
+                            int32_t* rank, int64_t nblk, int64_t radix,
+                            void* stream) {
+  if (nblk < 0 || radix < 1 || radix > kMaxRadix)
     return static_cast<int>(cudaErrorInvalidValue);
-  sort_rank_kernel<<<blocks_for(kSlots, kSortThreads), kSortThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, base, cnt, rank, nblk, static_cast<int>(radix));
-  return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  const int r = static_cast<int>(radix);
+  return static_cast<int>(
+      nblk < (1 << 16)
+          ? launch_rank<uint16_t, kSortThreads>(keys, base, rank, nblk, r,
+                                                st)
+          : launch_rank<uint32_t, kSortThreads / 2>(keys, base, rank, nblk,
+                                                    r, st));
 }

@@ -5,10 +5,12 @@
     sort_rank  <- pallas_sort.py::_rank_kernel
 
 Keys are one LSD pass's digits in ``ops/sort.py``'s block layout
-``[nblk, 8, 128]`` (int32, values below radix <= 256).  Each wrapper checks
-its CUDA int32 operands, launches on PyTorch's current stream into outputs
-made with ``torch.empty`` and raises on anything the kernels do not take;
-there is no fallback.  The plain twins are ``sort.hist_plain`` and
+``[nblk, 8, 128]`` (int32, values below radix <= 256).  Each kernel runs 32
+blocks, each owning 32 of the 1024 (sublane, lane) slots with its counters
+in shared memory (the design is in the source's header); a call is one
+``torch.empty`` (the output) and one launch.  Each wrapper checks its CUDA
+int32 operands, launches on PyTorch's current stream and raises on
+anything the kernels do not take; there is no fallback.  The plain twins are ``sort.hist_plain`` and
 ``sort.rank_plain``.  ``launches`` counts kernel launches, one per launch
 and nowhere else.
 """
@@ -58,9 +60,8 @@ def rank(keys: torch.Tensor, base: torch.Tensor, radix: int) -> torch.Tensor:
                          f"{base.device}, need int32 [{radix}, {SUB}, {LN}] "
                          f"on {keys.device}")
     base = base.contiguous()
-    cnt = torch.empty_like(base)
     out = torch.empty_like(keys)
-    build.launch("bp_sort_rank", keys.device, keys, base, cnt, out,
-                 keys.shape[0], radix)
+    build.launch("bp_sort_rank", keys.device, keys, base, out, keys.shape[0],
+                 radix)
     launches["sort_rank"] += 1
     return out

@@ -42,7 +42,7 @@ _N = ctypes.c_int64
 # C entry points: name -> argument types.  Every pointer and the stream are
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
 # the pointer); every count is c_int64.  Each returns cudaGetLastError().
-ABI = 6                # bp_abi_version() of the sources below
+ABI = 7                # bp_abi_version() of the sources below
 SIGNATURES = {
     # a, row stride of a, b, row stride of b, out, n, stream
     "bp_fe_mul": [_P, _N, _P, _N, _P, _N, _P],
@@ -71,8 +71,8 @@ SIGNATURES = {
     "bp_ge_bucket_fold": [_P, _P, _P, _P, _N, _N, _N, _P],
     # keys, counts, nblk, radix, stream
     "bp_sort_hist": [_P, _P, _N, _N, _P],
-    # keys, base, cnt, rank, nblk, radix, stream
-    "bp_sort_rank": [_P, _P, _P, _P, _N, _N, _P],
+    # keys, base, rank, nblk, radix, stream
+    "bp_sort_rank": [_P, _P, _P, _N, _N, _P],
     "bp_fe_mul_chain": [_P, _P, _P, _N, _N, _P],  # a, b, out, n, reps, stream
     "bp_r16_mul": [_P, _P, _P, _N, _P],         # a, b, out, n, stream
     "bp_r16_sq": [_P, _P, _N, _P],              # a, out, n, stream

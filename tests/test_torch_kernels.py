@@ -747,27 +747,51 @@ def test_bucket_fold_layouts_agree_on_curve_points(dev):
         assert TC.to_oracle(got) == [want], lanes
 
 
-@pytest.mark.parametrize("keys", ["random", "equal", "two"])
-@pytest.mark.parametrize("radix", [128, 64])
-def test_sort_kernels_equal_twins(dev, radix, keys):
-    """One LSD pass at 2^16 keys (the 7 + 6 bit passes of w = 13): random
-    keys, all equal, two values."""
-    rng = np.random.default_rng(radix)
-    k = {"random": rng.integers(0, radix, size=1 << 16),
-         "equal": np.full(1 << 16, radix - 1),
-         "two": rng.choice([3, radix // 2], size=1 << 16)}[keys]
-    kb = torch.from_numpy(k.astype(np.int32).reshape(64, 8, 128)).to(dev)
+# (rows of 1024 keys, radix, keys): one LSD pass at 2^16 keys (the 7 + 6
+# bit passes of w = 13) with random keys, all equal, two values; no rows,
+# one, four (the 4096-key tests), 1024 (2^20 keys), and 2^16 (sort_rank's
+# 32-bit counters); radix 1, 2 (the last pass of the 4096-key tests), 16
+# and 256 (the most shared memory); keys of -1 and radix
+SORT_CASES = ([(64, r, k) for r in (128, 64) for k in ("random", "equal",
+                                                        "two")]
+              + [(0, 128, "random"), (1, 2, "random"), (1, 256, "out"),
+                 (4, 1, "equal"), (4, 2, "out"), (4, 16, "two"),
+                 (1024, 128, "random"), (1024, 16, "out"),
+                 (64, 256, "random"), (64, 256, "equal"), (64, 256, "out"),
+                 (1 << 16, 2, "out")])
+
+
+@pytest.mark.parametrize("nblk,radix,keys", SORT_CASES)
+def test_sort_kernels_equal_twins(dev, nblk, radix, keys):
+    """sort_hist and sort_rank equal their twins integer for integer, each
+    one launch and one allocation a call; keys outside [0, radix) are not
+    counted and get rank 0."""
+    rng = np.random.default_rng(nblk * 1000 + radix)
+    n = nblk * 1024
+    k = {"random": lambda: rng.integers(0, radix, size=n),
+         "equal": lambda: np.full(n, radix - 1),
+         "two": lambda: rng.choice([3, radix // 2], size=n),
+         "out": lambda: rng.integers(-1, radix + 1, size=n)}[keys]()
+    kb = torch.from_numpy(k.astype(np.int32).reshape(nblk, 8, 128)).to(dev)
+    before = dict(cuda_sort.launches)
     counts = cuda_sort.hist(kb, radix)
     assert torch.equal(counts, TSO.hist_plain(kb, radix))
     flat = counts.reshape(-1)
     base = (torch.cumsum(flat, 0) - flat).reshape(radix, 8, 128).int()
     got = cuda_sort.rank(kb, base, radix)
     assert torch.equal(got, TSO.rank_plain(kb, base, radix))
-    assert torch.equal(got.reshape(-1).sort()[0],
-                       torch.arange(1 << 16, device=dev, dtype=torch.int32))
+    assert {name: cuda_sort.launches[name] - before[name]
+            for name in before} == {"sort_hist": 1, "sort_rank": 1}
+    if keys != "out":
+        assert torch.equal(got.reshape(-1).sort()[0],
+                           torch.arange(n, device=dev, dtype=torch.int32))
+    if nblk:
+        assert allocations(lambda: cuda_sort.hist(kb, radix)) == 1
+        assert allocations(lambda: cuda_sort.rank(kb, base, radix)) == 1
 
 
-@pytest.mark.parametrize("n,w,bits", [(1 << 16, 13, 7), (4096, 5, 4)])
+@pytest.mark.parametrize("n,w,bits", [(1 << 16, 13, 7), (4096, 5, 4),
+                                      (1 << 20, 13, 7), (1 << 16, 13, 8)])
 def test_grouping_order_on_card_is_stable_argsort(dev, n, w, bits):
     rng = np.random.default_rng(n + w)
     d = torch.from_numpy(rng.integers(0, 1 << w, size=n,

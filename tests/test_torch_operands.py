@@ -182,6 +182,10 @@ def test_c_entries_take_the_bound_arguments():
         assert _c_params(src, name) == [
             "const int32_t* a", "int32_t* out", "int64_t n", "int64_t lanes",
             "void* stream"]
+    # sort_rank keeps its counters in shared memory: no scratch table
+    assert _c_params(src, "bp_sort_rank") == [
+        "const int32_t* keys", "const int32_t* base", "int32_t* rank",
+        "int64_t nblk", "int64_t radix", "void* stream"]
 
 
 @pytest.mark.parametrize("batch", [*DOUBLE_BATCHES, REDUCE_BATCH])
@@ -278,7 +282,7 @@ class _Library:
             setattr(self, name, types.SimpleNamespace())
 
 
-@pytest.mark.parametrize("version", [None, 2, 3, 4, 5, build.ABI,
+@pytest.mark.parametrize("version", [None, 2, 3, 4, 5, 6, build.ABI,
                                      build.ABI + 1])
 def test_older_library_is_refused(monkeypatch, version):
     """``build.load`` binds every entry of a library of this checkout's C
@@ -286,8 +290,8 @@ def test_older_library_is_refused(monkeypatch, version):
     of any other (an older ge_double entry took one packed point, older
     fe_invert / fe_pow2523 entries no group width, older fe_sq / ge_reduce
     entries packed rows, older inner-product entries a zeroed partial and
-    no scratch)."""
-    assert build.ABI == 6
+    no scratch, an older sort_rank entry a scratch counter table)."""
+    assert build.ABI == 7
     monkeypatch.setattr(build.ctypes, "CDLL", lambda path: _Library(version))
     if version != build.ABI:
         with pytest.raises(RuntimeError, match="C interface version"):

@@ -122,6 +122,128 @@ def test_sort_twins_skewed_and_out_of_range_keys():
         assert sorted(r[valid.reshape(-1)]) == list(range(int(valid.sum())))
 
 
+def _split_sort_model(keys: torch.Tensor, radix: int, warps: int):
+    """sort_hist and sort_rank as the kernels split each slot's rows, in
+    plain torch (no JAX): `warps` contiguous chunks of ceil(nblk / warps)
+    rows (the last uneven or empty); phase 1 counts each chunk; the counts
+    are their sum; phase 2 starts each chunk's counter of each value at
+    base plus the counts of the chunks before it; phase 3 walks the chunks
+    in step, as the warps do, each key taking its counter and adding one.
+    A key outside [0, radix), and the padding past the last row, go to a
+    spare counter and get rank 0.  Returns (counts, base, rank)."""
+    nblk = keys.shape[0]
+    chunk = -(-nblk // warps)
+    k = torch.full((warps * chunk, TSO.BLOCK), radix, dtype=torch.int64)
+    k[:nblk] = keys.reshape(nblk, TSO.BLOCK)
+    valid = (k >= 0) & (k < radix)
+    k = torch.where(valid, k, radix).reshape(warps, chunk, TSO.BLOCK)
+    cnt = torch.zeros((warps, radix + 1, TSO.BLOCK), dtype=torch.int64)
+    cnt.scatter_add_(1, k, torch.ones_like(k))
+    counts = cnt.sum(0)[:radix]
+    flat = counts.reshape(-1)
+    base = (flat.cumsum(0) - flat).reshape(radix, TSO.BLOCK)
+    cnt = cnt.cumsum(0) - cnt
+    cnt[:, :radix] += base
+    rank = torch.zeros_like(k)
+    w = torch.arange(warps)[:, None]
+    col = torch.arange(TSO.BLOCK)
+    for j in range(chunk):
+        kt = k[:, j]
+        rank[:, j] = cnt[w, kt, col]
+        cnt[w, kt, col] += 1
+    rank = torch.where(valid, rank.reshape(-1, TSO.BLOCK), 0)[:nblk]
+    shape = (TSO.SUB, TSO.LN)
+    return (counts.to(torch.int32).reshape(radix, *shape),
+            base.to(torch.int32).reshape(radix, *shape),
+            rank.to(torch.int32).reshape(nblk, *shape))
+
+
+# (rows of 1024 keys, radix, keys): no rows, one, three, 64 (2^16 keys)
+# and 1024 (2^20); radix 1, 2, 128 and 256; random keys, all equal, two
+# values, and keys of -1 and radix among them
+SPLIT_CASES = [(0, 1, "random"), (0, 256, "random"), (1, 1, "equal"),
+               (1, 2, "two"), (1, 128, "random"), (1, 256, "out"),
+               (3, 1, "equal"), (3, 2, "out"), (3, 128, "random"),
+               (3, 256, "two"), (3, 256, "out"), (64, 1, "out"),
+               (64, 128, "random"), (64, 2, "equal"), (64, 2, "out"),
+               (1024, 2, "random")]
+
+
+@pytest.mark.parametrize("nblk,radix,keys", SPLIT_CASES)
+def test_split_rows_give_the_twins_counts_and_ranks(nblk, radix, keys):
+    """The invariant that lets the sort kernels spread a slot over warps:
+    whatever chunks a slot's rows are split into (one, three with an
+    uneven last or empty ones, eight), counting each chunk and starting
+    each from base plus the earlier chunks' counts gives hist_plain's
+    counts and rank_plain's ranks."""
+    rng = np.random.default_rng(nblk * 1000 + radix)
+    n = nblk * 1024
+    k = {"random": lambda: rng.integers(0, radix, size=n),
+         "equal": lambda: np.full(n, radix - 1),
+         "two": lambda: rng.choice([0, radix - 1], size=n),
+         "out": lambda: rng.integers(-1, radix + 1, size=n)}[keys]()
+    kb = torch.from_numpy(k.astype(np.int32).reshape(nblk, 8, 128))
+    want = TSO.hist_plain(kb, radix)
+    flat = want.reshape(-1)
+    base = (torch.cumsum(flat, 0) - flat).to(torch.int32).reshape(radix, 8,
+                                                                   128)
+    want_rank = TSO.rank_plain(kb, base, radix)
+    for warps in (1, 3, 8):
+        counts, got_base, rank = _split_sort_model(kb, radix, warps)
+        assert torch.equal(counts, want)
+        assert torch.equal(got_base, base)
+        assert torch.equal(rank, want_rank), warps
+
+
+@pytest.mark.parametrize("keys", ["equal", "two"])
+@pytest.mark.parametrize("nblk", [1, 4096, (1 << 16) - 1])
+def test_packed_counter_prefix_never_carries(nblk, keys):
+    """sort_rank's phase 2 takes the prefix over its 16 chunks of two
+    16-bit counters (neighbouring slots) in one 32-bit word: below 2^16
+    rows no count or prefix reaches 2^16, so the packed sums equal each
+    counter's own prefix, all equal keys (the largest counts) included."""
+    chunks, slots, radix = 16, 16, 2
+    rng = np.random.default_rng(nblk)
+    k = (np.zeros((nblk, slots), np.int64) if keys == "equal"
+         else rng.integers(0, radix, size=(nblk, slots)))
+    chunk = -(-nblk // chunks)
+    cnt = np.stack([np.stack([(k[c * chunk:(c + 1) * chunk] == v).sum(0)
+                              for v in range(radix)])
+                    for c in range(chunks)])             # [chunks, radix, slots]
+    want = np.cumsum(cnt, 0) - cnt
+    words = cnt.astype(np.uint16).reshape(chunks, -1).view(np.uint32)
+    got = np.empty_like(words)
+    run = np.zeros_like(words[0])
+    for c in range(chunks):
+        got[c] = run
+        run = run + words[c]
+    got = got.view(np.uint16).reshape(cnt.shape)
+    assert want.max() < 1 << 16
+    assert np.array_equal(got.astype(np.int64), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("kernel", ["hist", "rank"])
+def test_sort_wrappers_refuse_other_devices(monkeypatch, kernel, device):
+    """The CUDA wrappers take CUDA tensors only: CPU and meta keys raise
+    before any launch, with no fallback; the dispatchers in ops/sort.py
+    hand CPU tensors to the twins without loading the kernel library."""
+    keys = torch.zeros((2, 8, 128), dtype=torch.int32, device=device)
+    base = torch.zeros((4, 8, 128), dtype=torch.int32, device=device)
+    args = (keys, 4) if kernel == "hist" else (keys, base, 4)
+    before = dict(cuda_sort.launches)
+
+    def no_library(*_):
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(cuda_sort.build, "launch", no_library)
+    with pytest.raises(ValueError, match="need a CUDA tensor"):
+        getattr(cuda_sort, kernel)(*args)
+    assert cuda_sort.launches == before
+    if device == "cpu":
+        twin = TSO.hist_plain if kernel == "hist" else TSO.rank_plain
+        assert torch.equal(getattr(TSO, kernel)(*args), twin(*args))
+
+
 @pytest.mark.parametrize("n,w,lanes,distinct", golden.MSM_CASES)
 def test_msm_pippenger_matches_jax(ref, monkeypatch, n, w, lanes, distinct):
     """The JAX package's msm_pippenger result as compressed bytes, and the
